@@ -9,9 +9,12 @@ It needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda), torch
 and numpy, and imports nothing but the port. Phases, each of which fails
 the run:
 
-  1. build     nvcc compiles veneur_tpu_torch/csrc/*.cu into one library
-               under veneur_tpu_torch/_build/ (keyed on a hash of the
-               sources); prints the build seconds and the ptxas report.
+  1. build     nvcc compiles veneur_tpu_torch/csrc/*.cu (one nvcc per
+               source, all started together, then one link) into one
+               library under veneur_tpu_torch/_build/ (keyed on a hash
+               of the sources); prints the build seconds and the ptxas
+               report, then launches the probe kernel (x + 1 on
+               f32[8, 128]) and fails unless every element reads 1.0.
   2. compress  the t-digest compress kernel against its plain torch
                version at the serving shape (K=32768 rows, C=256
                centroids, B=256 buffer) with a legal centroid prefix and
@@ -20,17 +23,29 @@ the run:
                C=64 cluster-overflow clip at a small shape.
   3. hll_stats the HLL estimate reduction against its plain version at
                [4096, 16384] u8 registers and at a ragged [37, 1000].
-  4. main path AggregationEngine(EngineConfig()) on the card: DogStatsD
+  4. ull_insert the ULL scatter-join insert against its plain version at
+               the serving shape [4096, 8192] with a batch of 8192:
+               random canonical and non-canonical bytes, 25% duplicated
+               targets with conflicting values, padding, the last slot
+               and register, one register hit 1000 times and the four
+               registers of one word hit together; every byte equal,
+               and re-landing the batch changes nothing.
+  5. main path, twice, through AggregationEngine on the card: the default
+               EngineConfig() (t-digest + HLL), then
+               histogram_backend="req", set_backend="ull". Each: DogStatsD
                datagrams through parse_packet -> process, bulk batches
                through ingest_*_batch, one interval above the 0.75
                dirty threshold (the full flush), a hot key with 50k
                samples in one batch (the hot-slot sidestep) and an
-               empty double flush, held against numpy truth. Both
-               kernels' launch counters, set to 0 just before, must rise
-               in this run. Then a second engine with the incremental
-               flush off (not counted) is fed the same data and must
-               flush bit-identical rows.
-  5. timing    median kernel and plain-version times at the serving
+               empty double flush, held against numpy truth under the
+               engine pair's contract. The launch counters are set to 0
+               just before each path and read just after it: each path
+               must launch its own kernels (default: compress, hll_stats;
+               req+ull: ull_insert; both: the probe, at engine
+               construction) and none of the other path's. Then a second
+               engine with the incremental flush off (not counted) is fed
+               the same data and must flush bit-identical rows.
+  6. timing    median kernel and plain-version times at the serving
                shapes, against each kernel's bound, and the flush times.
 
 Then it prints one JSON line describing every kernel, the card's name
@@ -41,6 +56,7 @@ beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -62,6 +78,7 @@ F32_OPS_PER_S = 67e12
 # serving shapes at the default EngineConfig
 SERVE_K, SERVE_C, SERVE_B = 32768, 256, 256
 SERVE_SETS, SERVE_M = 4096, 16384
+SERVE_ULL_M, SERVE_BATCH = 8192, 8192
 
 
 class Phase:
@@ -122,6 +139,28 @@ def time_ms(fn, device, reps, warmup=1):
     return statistics.median(times)
 
 
+class GcPauses:
+    """Milliseconds the interpreter's garbage collector spent inside a
+    `with` block (gc.callbacks brackets every collection)."""
+
+    def __enter__(self):
+        self.ms = 0.0
+        self._t0 = None
+        gc.callbacks.append(self._cb)
+        return self
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+        return False
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     out = subprocess.run(
@@ -134,15 +173,28 @@ def card_line():
 
 # ------------------------------------------------------------- phase 1
 
-def phase_build():
-    from veneur_tpu_torch.kernels import _build
+def phase_build(device):
+    """Build the library, then launch the probe kernel before any real
+    one: x + 1 over zeros(8, 128) must read 1.0 everywhere and equal its
+    plain version."""
+    import torch
+    from veneur_tpu_torch.kernels import _build, probe
     _build.load()
     path, secs, log = _build.last_build
     print(f"library {os.path.relpath(path, ROOT)} built in {secs:.2f} s")
     for line in log.splitlines():
         if "registers" in line or "smem" in line or "error" in line:
             print("  " + line.strip())
-    return {"build_s": secs, "library": os.path.relpath(path, ROOT)}
+    x = torch.zeros(probe.SHAPE, dtype=torch.float32, device=device)
+    out = probe.probe_add(x)
+    plain = probe.probe_plain(x)
+    sync(device)
+    check(bool((out == 1.0).all()),
+          "probe kernel: not every element reads 1.0")
+    err = float((out - plain).abs().max())
+    print(f"probe: every element of {list(probe.SHAPE)} reads 1.0")
+    return {"build_s": secs, "library": os.path.relpath(path, ROOT),
+            "max_abs_err": err}
 
 
 # ------------------------------------------------------------- phase 2
@@ -344,6 +396,87 @@ def phase_hll(device, K=SERVE_SETS, m=SERVE_M):
 
 # ------------------------------------------------------------- phase 4
 
+def ull_insert_inputs(device, K, m, n, seed=3):
+    """A [K, m] register bank and an n-update batch as the phase
+    describes. Returns (registers, slots, idx, vals) on `device`, plus
+    the (slot, idx) of the hot register."""
+    import torch
+    rng = np.random.default_rng(seed)
+    # canonical states on even rows (b1 needs q >= 2, b2 needs q >= 3),
+    # arbitrary bytes (non-canonical ones too) on odd rows, one zero row
+    q = rng.integers(0, 53, (K, m))
+    b1 = rng.integers(0, 2, (K, m)) & (q >= 2)
+    b2 = rng.integers(0, 2, (K, m)) & (q >= 3)
+    regs = np.where(q > 0, (q << 2) | (b1 << 1) | b2, 0).astype(np.uint8)
+    regs[1::2] = rng.integers(0, 256, (K // 2, m), dtype=np.uint8)
+    regs[2] = 0
+    slots = rng.integers(0, K, n).astype(np.int32)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    vals = (rng.integers(1, 52, n) << 2).astype(np.uint8)
+    vals[::5] = rng.integers(0, 256, len(vals[::5]), dtype=np.uint8)
+    d = n // 4                       # 25% duplicated targets
+    slots[:d], idx[:d] = slots[d:2 * d], idx[d:2 * d]
+    i = 2 * d
+    slots[i:i + 256] = -1            # padding
+    i += 256
+    slots[i:i + 8], idx[i:i + 8] = K - 1, m - 1
+    i += 8
+    hot = (4, 77)                    # one register hit 1000 times
+    slots[i:i + 1000], idx[i:i + 1000] = hot
+    vals[i:i + 1000] = (rng.integers(1, 52, 1000) << 2) \
+        | rng.integers(0, 4, 1000)
+    i += 1000
+    slots[i:i + 400] = 8             # the four registers of one word
+    idx[i:i + 400] = 100 + np.arange(400) % 4
+    i += 400
+    slots[i:i + 3] = (K, 0, 1)       # outside the bank: dropped
+    idx[i:i + 3] = (0, m, -1)
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return t(regs), t(slots), t(idx), t(vals), hot
+
+
+def phase_ull_insert(device, K=SERVE_SETS, m=SERVE_ULL_M, n=SERVE_BATCH):
+    """Kernel vs plain. Tolerance: none — every register byte equal. The
+    hot register is also checked against a numpy fold of the join over
+    its operands, and re-landing the batch must change nothing."""
+    import torch
+    from veneur_tpu_torch.kernels import ull_insert as ki
+    from veneur_tpu_torch.sketches import ull
+    regs, slots, idx, vals, hot = ull_insert_inputs(device, K, m, n)
+    kb = ull.ULLBank(registers=regs.clone())
+    pb = ull.ULLBank(registers=regs.clone())
+    ki.fused_insert(kb, slots, idx, vals)
+    ull._insert_impl(pb, slots, idx, vals)
+    sync(device)
+    diff = int((kb.registers != pb.registers).sum())
+    err = int((kb.registers.int() - pb.registers.int()).abs().max())
+    changed = int((kb.registers != regs).sum())
+    s_np, i_np, v_np = (a.cpu().numpy() for a in (slots, idx, vals))
+    want = regs[hot].item()
+    for v in v_np[(s_np == hot[0]) & (i_np == hot[1])]:
+        want = int(ull.join_registers_np(want, v))
+    before = kb.registers.clone()
+    ki.fused_insert(kb, slots, idx, vals)
+    sync(device)
+    rec = {"K": K, "m": m, "n": n, "bytes_differing": diff,
+           "bytes_changed_by_the_batch": changed,
+           "hot_register": [kb.registers[hot].item(), want],
+           "relanding_changes": int((kb.registers != before).sum()),
+           "max_abs_err": err}
+    print(f"ull_insert serving: {json.dumps(rec)}")
+    check(diff == 0, f"{diff} register bytes differ from the plain version")
+    check(changed >= n // 8, f"the batch changed only {changed} bytes")
+    check(kb.registers[hot].item() == want,
+          "hot register differs from the numpy fold of the join")
+    check(rec["relanding_changes"] == 0, "re-landing the batch changed bytes")
+    return rec
+
+
+# ------------------------------------------------------------- phase 5
+
 def _datagrams(rng, n, tag):
     """n DogStatsD lines over a few hundred keys of every type."""
     lines = []
@@ -425,7 +558,8 @@ def build_interval(rng, spec, tag):
         d["set"] = rng.integers(0, 2 ** 64, (ns, members), dtype=np.uint64)
     hot = spec.get("hot", 0)
     if hot:
-        d["hot"] = rng.lognormal(3, 1, hot).astype(np.float32)
+        d["hot"] = (rng.normal(1000, 10, hot) if spec.get("hot_normal")
+                    else rng.lognormal(3, 1, hot)).astype(np.float32)
     return d
 
 
@@ -434,7 +568,6 @@ def feed(eng, d, truth=None):
     points."""
     from veneur_tpu_torch.ingest.parser import (
         ServiceCheck, UDPMetric, parse_packet)
-    from veneur_tpu_torch.ops import hll
     b = eng.cfg.batch_size
     for ln in d["lines"]:
         m = parse_packet(ln)
@@ -483,8 +616,7 @@ def feed(eng, d, truth=None):
         h = d["set"]
         names = [f"bulk.s.{i}" for i in range(len(h))]
         slots = np.repeat(_intern(eng.set_keys, names, "set"), h.shape[1])
-        idx, rho = hll.host_hash_to_updates(h.reshape(-1),
-                                            eng.cfg.hll_precision)
+        idx, rho = eng._seng.host_hash_to_updates(h.reshape(-1))
         for i in range(0, len(slots), b):
             s = slots[i:i + b]
             eng.ingest_set_batch(s, idx[i:i + b], rho[i:i + b],
@@ -505,16 +637,94 @@ def rows_of(res):
     return {(m.name, tuple(m.tags)): m for m in res.metrics}
 
 
-def check_against_truth(res, truth, hll_precision, label):
+QS = (0.5, 0.75, 0.99)
+
+
+def req_quantile_np(v, qs):
+    """float64 numpy evaluation of the REQ quantile's knot scheme on raw
+    unit-weight samples: knots (0, min), hazen mid-points (i + 1/2)/n at
+    the sorted samples, (1, max); linear interpolation between the knots
+    that bracket q, in log space when every sample is positive."""
+    x = np.sort(np.asarray(v, np.float64))
+    n = len(x)
+    kq = np.concatenate([[0.0], (np.arange(n) + 0.5) / n, [1.0]])
+    kv = np.concatenate([[x[0]], x, [x[-1]]])
+    log = x[0] > 0
+    if log:
+        kv = np.log(np.maximum(kv, 1e-37))
+    out = []
+    for q in qs:
+        below = np.nonzero(kq < q)[0]
+        if below.size == 0:
+            r = kv[0]
+        else:
+            lo = below[-1]
+            den = kq[lo + 1] - kq[lo]
+            t = (q - kq[lo]) / den if den > 0 else 0.0
+            r = kv[lo] + t * (kv[lo + 1] - kv[lo])
+        out.append(np.exp(r) if log else r)
+    return np.array(out)
+
+
+def check_percentiles(rows, name, tags, v, heng, label, worst):
+    """The histogram engine's contract. t-digest: within 1% of the key's
+    spread of numpy's quantile (method "hazen", the plotting positions
+    a t-digest's singleton centroids interpolate between). REQ: a key
+    whose level never reached the compaction trigger holds its raw
+    samples, so its percentiles are within rtol 1e-5 of
+    `req_quantile_np` at the f32 quantiles (f32 knots and
+    interpolation); a compacted key (the plans' only one is the hot key,
+    a compact normal(1000, 10) stream) is held to the JAX package's REQ
+    contract for compact streams, within 1% relative of numpy's
+    percentile."""
+    if heng.id == "req":
+        cap = heng.capacity
+        trig = cap - (cap - (5 * cap) // 8) // 2
+        if len(v) < trig:
+            want = req_quantile_np(
+                v, np.float32(QS).astype(np.float64))
+            tol = [1e-5 * abs(w) for w in want]
+            kind = "req_raw_rel_err"
+        else:
+            want = np.percentile(v.astype(np.float64), [100 * q for q in QS])
+            tol = [0.01 * abs(w) for w in want]
+            kind = "req_compacted_rel_err"
+        for q, w, t in zip(QS, want, tol):
+            got = rows[(f"{name}.{q * 100:g}percentile", tags)].value
+            worst[kind] = max(worst.get(kind, 0.0),
+                              abs(got - w) / max(abs(w), 1e-30))
+            check(abs(got - w) <= t,
+                  f"{label} {name} p{q * 100:g}: {got} vs {w}")
+        return
+    spread = float(v.max()) - float(v.min())
+    want = np.quantile(v.astype(np.float64), QS, method="hazen")
+    for q, w in zip(QS, want):
+        got = rows[(f"{name}.{q * 100:g}percentile", tags)].value
+        err = abs(got - w) / spread if spread > 0 else abs(got - w)
+        worst["pct_err_over_spread"] = max(
+            worst.get("pct_err_over_spread", 0.0), err)
+        check(err <= 0.01 + 1e-6,
+              f"{label} {name} p{q * 100:g}: {got} vs {w} (spread {spread})")
+
+
+def set_ok(got, n, seng):
+    """The set engine's contract. HLL: within three nominal standard
+    errors plus one member (at a few dozen members a single register
+    collision is already more than 3 standard errors). ULL: within
+    4 x 0.76/sqrt(m) + 0.01 relative, the bound the JAX package's
+    cardinality oracle holds ULL to."""
+    if seng.id == "ull":
+        return abs(got - n) / n <= 4 * seng.nominal_error() + 0.01
+    return abs(got - n) <= 3 * seng.nominal_error() * n + 1.0
+
+
+def check_against_truth(res, truth, eng, label):
     """Counts, min, max, counter totals and gauge values exact;
-    percentiles within 1% of each key's spread of numpy's quantile
-    (method "hazen", the plotting positions a t-digest's singleton
-    centroids interpolate between); set estimates within three times
-    HLL's nominal standard error, plus one member."""
+    percentiles and set estimates under the engine pair's contract
+    (check_percentiles, set_ok)."""
     rows = rows_of(res)
-    worst = {"pct_err_over_spread": 0.0, "set_rel_err": 0.0}
-    names = list(truth.histo)
-    for key in names:
+    worst = {"set_rel_err": 0.0}
+    for key in truth.histo:
         v = np.asarray(truth.histo[key], np.float32)
         name, tags = key
         cnt = rows[(name + ".count", tags)].value
@@ -523,32 +733,19 @@ def check_against_truth(res, truth, hll_precision, label):
               f"{label} {name}: min")
         check(rows[(name + ".max", tags)].value == float(v.max()),
               f"{label} {name}: max")
-        spread = float(v.max()) - float(v.min())
-        want = np.quantile(v.astype(np.float64), [0.5, 0.75, 0.99],
-                           method="hazen")
-        for q, w in zip(("50", "75", "99"), want):
-            got = rows[(f"{name}.{q}percentile", tags)].value
-            err = abs(got - w) / spread if spread > 0 else abs(got - w)
-            worst["pct_err_over_spread"] = max(
-                worst["pct_err_over_spread"], err)
-            check(err <= 0.01 + 1e-6,
-                  f"{label} {name} p{q}: {got} vs {w} (spread {spread})")
+        check_percentiles(rows, name, tags, v, eng._heng, label, worst)
     for key, want in truth.counter.items():
         got = rows[key].value
         check(got == want, f"{label} counter {key}: {got} != {want}")
     for key, want in truth.gauge.items():
         got = rows[key].value
         check(got == want, f"{label} gauge {key}: {got} != {want}")
-    stderr = 1.04 / np.sqrt(1 << hll_precision)
     for key, want in truth.sets.items():
         n = want if isinstance(want, int) else len(want)
         got = rows[key].value
         rel = abs(got - n) / n
         worst["set_rel_err"] = max(worst["set_rel_err"], rel)
-        # plus one: at a few dozen members a single register collision
-        # (one member short) is already more than 3 standard errors
-        check(abs(got - n) <= 3 * stderr * n + 1.0,
-              f"{label} set {key}: {got} vs {n}")
+        check(set_ok(got, n, eng._seng), f"{label} set {key}: {got} vs {n}")
     n_expected = (6 * len(truth.histo) + len(truth.counter)
                   + len(truth.gauge) + len(truth.sets))
     check(len(res.frame) == n_expected,
@@ -573,20 +770,38 @@ SERVE_PLAN = {
 }
 EXPECT_PATH = {"A": "incremental", "B": "full", "C": "incremental",
                "D": "incremental"}
+# the req+ull path: the same plan, with the hot key a compact
+# normal(1000, 10) stream (the REQ contract for compact streams)
+REQ_PLAN = {**SERVE_PLAN, "C": {**SERVE_PLAN["C"], "hot_normal": True}}
+
+# each main path: its engine config, plan, and the kernels it must and
+# must not launch
+PATHS = {
+    "default": {"cfg": {}, "plan": SERVE_PLAN,
+                "launched": ("compress", "hll_stats", "probe"),
+                "not_launched": ("ull_insert",)},
+    "req+ull": {"cfg": {"histogram_backend": "req", "set_backend": "ull"},
+                "plan": REQ_PLAN,
+                "launched": ("ull_insert", "probe"),
+                "not_launched": ("compress", "hll_stats")},
+}
 
 
-def phase_main(device, cfg_kw=None, plan=None):
-    """The port's main path at the default configuration, intervals
-    A-D, against numpy truth. The launch counters are set to 0 just
-    before the engine is built and read just after its last flush, so
-    they count the main path alone. Then the same stream goes into a
-    second engine with the incremental flush off (outside the count),
-    whose rows must be bit-identical in every interval."""
+def phase_main(device, path="default", cfg_kw=None, plan=None):
+    """One main path, intervals A-D, against numpy truth. The launch
+    counters are set to 0 just before the engine is built and read just
+    after its last flush, so they count this path alone; the path's
+    kernels must have launched and the other path's not. Then the same
+    stream goes into a second engine with the incremental flush off
+    (outside the count), whose rows must be bit-identical in every
+    interval. `cfg_kw` and `plan` override the path's (CPU rehearsals
+    at small shapes)."""
     from veneur_tpu_torch import kernels
     from veneur_tpu_torch.models.pipeline import (
         AggregationEngine, EngineConfig)
-    cfg_kw = cfg_kw or {}
-    plan = plan or SERVE_PLAN
+    spec = PATHS[path]
+    cfg_kw = {**spec["cfg"], **(cfg_kw or {})}
+    plan = plan or spec["plan"]
     rng = np.random.default_rng(7)
     data = {k: build_interval(rng, spec, k) for k, spec in plan.items()}
 
@@ -598,16 +813,16 @@ def phase_main(device, cfg_kw=None, plan=None):
         truth = Truth()
         feed(eng, d, truth)
         before = dict(kernels.launches)
-        t0 = time.monotonic()
-        res = eng.flush(timestamp=1000 + i)
-        ms = (time.monotonic() - t0) * 1e3
+        with GcPauses() as gcp:
+            t0 = time.monotonic()
+            res = eng.flush(timestamp=1000 + i)
+            ms = (time.monotonic() - t0) * 1e3
         flush_launches = {k: n - before[k]
                           for k, n in kernels.launches.items()}
-        path = res.stats["flush_path"]["path"]
-        check(path == EXPECT_PATH[label],
-              f"{label}: flush path {path}, expected {EXPECT_PATH[label]}")
-        worst = check_against_truth(res, truth, eng.cfg.hll_precision,
-                                    label)
+        fpath = res.stats["flush_path"]["path"]
+        check(fpath == EXPECT_PATH[label],
+              f"{label}: flush path {fpath}, expected {EXPECT_PATH[label]}")
+        worst = check_against_truth(res, truth, eng, label)
         if label == "D":
             check(len(res.metrics) == 0, "empty interval flushed rows")
         if label in ("A", "B", "C") and d["lines"]:
@@ -615,15 +830,23 @@ def phase_main(device, cfg_kw=None, plan=None):
                   f"{label}: service check missing")
         flushed[label] = canon(res)
         out["intervals"][label] = {
-            "path": path, "flush_ms": ms,
+            "path": fpath, "flush_ms": ms,
+            "swap_ms": res.stats["swap_ns"] / 1e6,
             "merge_ms": res.stats["merge_ns"] / 1e6,
+            "assembly_ms": res.stats["assembly_ns"] / 1e6,
+            "gc_ms": gcp.ms,
             "rows": len(res.frame),
             "dirty": res.stats["flush_path"].get("dirty"),
             "flush_launches": flush_launches, **worst}
     out["launches"] = dict(kernels.launches)
-    print(f"main-path launches: {out['launches']}")
-    for name, n in out["launches"].items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    print(f"main-path launches ({path}): {out['launches']}")
+    if device.type == "cuda":
+        for name in spec["launched"]:
+            check(out["launches"][name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+        for name in spec["not_launched"]:
+            check(out["launches"][name] == 0,
+                  f"kernel {name} was launched on the {path} path")
     del eng
 
     ref = AggregationEngine(EngineConfig(flush_incremental=False,
@@ -634,12 +857,58 @@ def phase_main(device, cfg_kw=None, plan=None):
         identical = flushed[label] == canon(res_ref)
         rec = out["intervals"][label]
         rec["equal_to_full_flush"] = identical
-        print(f"interval {label}: {json.dumps(rec)}")
+        print(f"interval {label} ({path}): {json.dumps(rec)}")
         check(identical, f"{label}: incremental flush != full flush")
     return out
 
 
-# ------------------------------------------------------------- phase 5
+# ------------------------------------------------------------- phase 6
+
+def time_fresh_ms(fn, make, device, reps):
+    """Median milliseconds of `fn(make())` with `make()` (a fresh copy of
+    state the function updates in place) outside the timed window."""
+    import torch
+    fn(make())
+    times = []
+    for _ in range(reps):
+        arg = make()
+        sync(device)
+        if device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(arg)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            fn(arg)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def kernel_device_ms(calls, device):
+    """Mean device time of one launch of each kernel, from
+    torch.profiler's trace of the card: `calls` maps a kernel's symbol in
+    csrc/ to callables that each launch it once. The per-call times of
+    `time_ms` also hold the host's share of a call (Python, ctypes, the
+    argument checks); this is the kernel alone."""
+    from torch.profiler import ProfilerActivity, profile
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fns in calls.values():
+            for fn in fns:
+                fn()
+        sync(device)
+    out = {}
+    for ev in prof.key_averages():
+        for sym in calls:
+            if f"{sym}(" in ev.key and ev.count:
+                out[sym] = ev.self_device_time_total / ev.count / 1e3
+    return out
+
 
 def compress_bound_ms(K, C, B):
     """Least time for one compress: read mean, weight, buf_value,
@@ -670,10 +939,39 @@ def hll_bound_ms(K, m):
         "bytes" if bytes_s >= ops_s else "operations", nbytes, ops
 
 
+def ull_insert_bound_ms(slots, idx, K, m):
+    """Read the update arrays once (9 bytes an update: slot, index,
+    value) and read and write each distinct 32-bit word that this
+    batch's valid updates touch (8 bytes a word); ~20 integer operations
+    an update (address, byte lane, join), at the f32 rate."""
+    s = slots.cpu().numpy().astype(np.int64)
+    i = idx.cpu().numpy().astype(np.int64)
+    ok = (s >= 0) & (s < K) & (i >= 0) & (i < m)
+    words = np.unique((s[ok] * m + i[ok]) >> 2).size
+    nbytes = 9 * len(s) + 8 * words
+    ops = 20 * int(ok.sum())
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(bytes_s, ops_s) * 1e3, \
+        "bytes" if bytes_s >= ops_s else "operations", nbytes, ops
+
+
+def probe_bound_ms(n):
+    """Read and write n f32 once; one add each."""
+    nbytes, ops = 8 * n, n
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(bytes_s, ops_s) * 1e3, \
+        "bytes" if bytes_s >= ops_s else "operations", nbytes, ops
+
+
 def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
-                 KS=SERVE_SETS, m=SERVE_M, reps=(20, 3)):
+                 KS=SERVE_SETS, m=SERVE_M, mu=SERVE_ULL_M, n=SERVE_BATCH,
+                 reps=(20, 3)):
+    import torch
     from veneur_tpu_torch.kernels import compress as kc
     from veneur_tpu_torch.kernels import hll_stats as kh
+    from veneur_tpu_torch.kernels import probe as kp
+    from veneur_tpu_torch.kernels import ull_insert as ki
+    from veneur_tpu_torch.sketches import ull
     args = compress_inputs(device, K, C, B)
     regs = hll_inputs(device, KS, m)
     out = {}
@@ -692,16 +990,55 @@ def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
                             reps[0]),
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
         "shape": [KS, m]}
+    uregs, slots, idx, vals, _ = ull_insert_inputs(device, KS, mu, n)
+    bound, by, nbytes, ops = ull_insert_bound_ms(slots, idx, KS, mu)
+
+    def fresh():
+        return ull.ULLBank(registers=uregs.clone())
+
+    out["ull_insert"] = {
+        "ms": time_fresh_ms(lambda b: ki.fused_insert(b, slots, idx, vals),
+                            fresh, device, reps[0]),
+        "plain_ms": time_fresh_ms(
+            lambda b: ull._insert_impl(b, slots, idx, vals), fresh, device,
+            reps[0]),
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
+        "shape": [KS, mu, n]}
+    x = torch.zeros(kp.SHAPE, dtype=torch.float32, device=device)
+    bound, by, nbytes, ops = probe_bound_ms(x.numel())
+    out["probe"] = {
+        "ms": time_ms(lambda: kp.probe_add(x), device, reps[0]),
+        "plain_ms": time_ms(lambda: kp.probe_plain(x), device, reps[0]),
+        "library_ms": time_ms(lambda: torch.add(x, 1.0), device, reps[0]),
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
+        "shape": list(kp.SHAPE)}
+    if device.type == "cuda":
+        fresh_banks = [fresh() for _ in range(10)]
+        dev_ms = kernel_device_ms({
+            "compress_kernel": [lambda: kc.fused_compress(*args, 100.0)] * 3,
+            "hll_stats_kernel": [lambda: kh.hll_stats(regs)] * 10,
+            "ull_insert_kernel": [
+                (lambda b=b: ki.fused_insert(b, slots, idx, vals))
+                for b in fresh_banks],
+            "probe_kernel": [lambda: kp.probe_add(x)] * 10}, device)
+        for name in out:
+            out[name]["device_ms"] = dev_ms.get(f"{name}_kernel")
     return out
 
 
 # ------------------------------------------------------------- main
 
+# (name, source, the TPU kernel it replaces, the phase holding it
+# against its plain version)
 KERNELS = (
     ("compress", "veneur_tpu_torch/csrc/compress.cu",
-     "veneur_tpu/kernels/compress.py:232"),
+     "veneur_tpu/kernels/compress.py:232", "compress"),
     ("hll_stats", "veneur_tpu_torch/csrc/hll_stats.cu",
-     "veneur_tpu/kernels/hll_stats.py:75"),
+     "veneur_tpu/kernels/hll_stats.py:75", "hll_stats"),
+    ("ull_insert", "veneur_tpu_torch/csrc/ull_insert.cu",
+     "veneur_tpu/kernels/ull_insert.py:55", "ull_insert"),
+    ("probe", "veneur_tpu_torch/csrc/probe.cu",
+     "veneur_tpu/kernels/__init__.py:83", "build"),
 )
 
 
@@ -727,37 +1064,48 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     ph = Phase()
-    if ph.run("build", phase_build) is None:
+    report = {"build": ph.run("build", phase_build, device)}
+    if report["build"] is None:
         return 1
-    report = {"compress": ph.run("compress", phase_compress, device),
-              "hll_stats": ph.run("hll_stats", phase_hll, device),
-              "main": ph.run("main path", phase_main, device),
-              "timing": ph.run("timing", phase_timing, device)}
+    report.update({
+        "compress": ph.run("compress", phase_compress, device),
+        "hll_stats": ph.run("hll_stats", phase_hll, device),
+        "ull_insert": ph.run("ull_insert", phase_ull_insert, device)})
+    main_out = {path: ph.run(f"main path {path}", phase_main, device, path)
+                for path in PATHS}
+    report["timing"] = ph.run("timing", phase_timing, device)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}",
               file=sys.stderr)
         return 1
 
-    timing, main_out = report["timing"], report["main"]
+    timing = report["timing"]
     for name, t in timing.items():
-        print(f"timing {name} {t['shape']}: kernel {t['ms']:.4f} ms, "
-              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}) | {card}")
-    for label, rec in main_out["intervals"].items():
-        print(f"timing flush {label} ({rec['path']}): "
-              f"{rec['flush_ms']:.2f} ms, merge {rec['merge_ms']:.2f} ms, "
-              f"kernel launches {rec['flush_launches']} | {card}")
+        lib = (f", library {t['library_ms']:.4f} ms"
+               if "library_ms" in t else "")
+        print(f"timing {name} {t['shape']}: kernel {t['ms']:.4f} ms a call "
+              f"({t['device_ms']} ms on the device), "
+              f"plain {t['plain_ms']:.4f} ms{lib}, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}) | {card}")
+    for path, out in main_out.items():
+        for label, rec in out["intervals"].items():
+            print(f"timing flush {path} {label} ({rec['path']}): "
+                  f"{rec['flush_ms']:.2f} ms, swap {rec['swap_ms']:.2f} ms, "
+                  f"merge {rec['merge_ms']:.2f} ms, host assembly "
+                  f"{rec['assembly_ms']:.2f} ms, gc {rec['gc_ms']:.2f} ms, "
+                  f"kernel launches {rec['flush_launches']} | {card}")
     kernels = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces, phase in KERNELS:
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": main_out["launches"][name],
-            "max_abs_err": report[name]["max_abs_err"],
+            "launches": sum(out["launches"][name]
+                            for out in main_out.values()),
+            "max_abs_err": report[phase]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": t.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """The whole slice: veneur_tpu_torch's AggregationEngine against
-veneur_tpu's on one parsed DogStatsD stream (CPU).
+veneur_tpu's on one parsed DogStatsD stream (CPU), for every sketch
+engine pair: (tdigest, hll) — the default — and (req, ull), (tdigest,
+ull), (req, hll).
 
 Three intervals go through both engines: one that takes the incremental
 flush (with a hot-slot batch), one above the 0.75 dirty threshold that
@@ -8,14 +10,19 @@ levels of the flushed rows:
 
   * exact: metric names, tags and types, the flush path and its dirty
     counts, histogram count/min/max, counter totals of integer-weighted
-    streams, gauge values, status checks;
-  * contract: percentiles within 1% of the key's spread (max - min),
-    histogram sums and a 0.3-rate counter within rtol 1e-6 (float64
-    batch sums in the port, float32 in JAX), set estimates within rtol
-    1e-5 (JAX's exp2 is inexact for integer exponents >= 13).
+    streams, gauge values, status checks, ULL set estimates (the u8
+    registers are exact, so the value counts are, and the same numpy ML
+    solve gives the same number);
+  * contract: t-digest percentiles within 1% of the key's spread (max -
+    min), REQ percentiles within rtol 1e-4 (ulps of log/exp between
+    XLA-CPU and torch-CPU in the compacted items, and the cumsum's
+    order), histogram sums and a 0.3-rate counter within rtol 1e-6
+    (float64 batch sums in the port, float32 in JAX), HLL set estimates
+    within rtol 1e-5 (JAX's exp2 is inexact for integer exponents >=
+    13).
 
 The port must also flush bit-identical rows with its incremental flush
-on and off.
+on and off, for every pair.
 """
 
 import numpy as np
@@ -36,6 +43,10 @@ CFG = dict(histogram_slots=64, counter_slots=32, gauge_slots=32,
            set_slots=8, buffer_depth=32, batch_size=256,
            percentiles=(0.5, 0.75, 0.99),
            aggregates=("min", "max", "count", "sum"))
+# the non-default engine pairs; REQ at capacity 64 so the busiest keys
+# and the hot key compact in the engine path too
+OTHER_PAIRS = [("req", "ull"), ("tdigest", "ull"), ("req", "hll")]
+REQ_CAPACITY = 64
 
 
 def _lines(rng, n, n_timers):
@@ -112,12 +123,22 @@ def _canon(res):
                   for m in res.metrics)
 
 
-@pytest.fixture(scope="module")
-def flushed():
-    jeng = jpipe.AggregationEngine(jpipe.EngineConfig(**CFG))
-    teng = tpipe.AggregationEngine(tpipe.EngineConfig(**CFG), device="cpu")
+def _pair_cfg(pair):
+    hb, sb = pair
+    kw = dict(CFG, histogram_backend=hb, set_backend=sb)
+    if hb == "req":
+        kw["req_capacity"] = REQ_CAPACITY
+    return kw
+
+
+def _run(pair):
+    """Feed the intervals to a JAX engine, a port engine and a port
+    engine with the incremental flush off; their flushes per interval."""
+    kw = _pair_cfg(pair)
+    jeng = jpipe.AggregationEngine(jpipe.EngineConfig(**kw))
+    teng = tpipe.AggregationEngine(tpipe.EngineConfig(**kw), device="cpu")
     tfull = tpipe.AggregationEngine(
-        tpipe.EngineConfig(flush_incremental=False, **CFG), device="cpu")
+        tpipe.EngineConfig(flush_incremental=False, **kw), device="cpu")
     out = []
     for i, d in enumerate(_intervals()):
         _feed(jeng, j_parse, d)
@@ -129,9 +150,17 @@ def flushed():
     return out
 
 
-@pytest.mark.parametrize("interval", [0, 1, 2])
-def test_flush_matches_jax(flushed, interval):
-    jres, tres, _ = flushed[interval]
+@pytest.fixture(scope="module")
+def flushed():
+    return _run(("tdigest", "hll"))
+
+
+@pytest.fixture(scope="module", params=OTHER_PAIRS, ids="-".join)
+def pair_flushed(request):
+    return request.param, _run(request.param)
+
+
+def _check_matches_jax(jres, tres, interval, pair):
     assert tres.stats["flush_path"] == jres.stats["flush_path"]
     assert tres.stats["flush_path"]["path"] == \
         ("incremental", "full", "incremental")[interval]
@@ -144,20 +173,60 @@ def test_flush_matches_jax(flushed, interval):
         assert not tr and not tres.status_metrics
         return
     assert len(tr) > 100
+    hb, sb = pair
     for (name, tags), (_t, v) in tr.items():
         w = jr[(name, tags)][1]
         base = name.rsplit(".", 1)[0]
         if name.endswith((".count", ".min", ".max")) \
                 or name.startswith(("c.", "g.")):
             assert v == w, (name, tags, v, w)
+        elif name.endswith("percentile") and hb == "req":
+            assert v == pytest.approx(w, rel=1e-4), (name, v, w)
         elif name.endswith("percentile"):
             spread = tr[(base + ".max", tags)][1] - \
                 tr[(base + ".min", tags)][1]
             assert abs(v - w) <= 0.01 * spread + 1e-6, (name, v, w)
+        elif name.startswith("s.") and sb == "ull":
+            assert v == w, (name, v, w)
         elif name.startswith("s."):
             assert v == pytest.approx(w, rel=1e-5)
         else:                                      # .sum and c3.bytes
             assert v == pytest.approx(w, rel=1e-6), (name, v, w)
+
+
+@pytest.mark.parametrize("interval", [0, 1, 2])
+def test_flush_matches_jax(flushed, interval):
+    jres, tres, _ = flushed[interval]
+    _check_matches_jax(jres, tres, interval, ("tdigest", "hll"))
+
+
+@pytest.mark.parametrize("interval", [0, 1, 2])
+def test_other_engine_pairs_match_jax(pair_flushed, interval):
+    pair, out = pair_flushed
+    jres, tres, _ = out[interval]
+    _check_matches_jax(jres, tres, interval, pair)
+
+
+@pytest.mark.parametrize("interval", [0, 1, 2])
+def test_other_engine_pairs_incremental_equals_full(pair_flushed,
+                                                    interval):
+    _, out = pair_flushed
+    _, tres, tfull = out[interval]
+    assert tfull.stats["flush_path"]["path"] == "full"
+    assert _canon(tres) == _canon(tfull)
+    assert _status(tres) == _status(tfull)
+
+
+def test_other_engine_pairs_hot_slot_batch_is_exact(pair_flushed):
+    """The hot key's 300 samples pre-cluster to the bank's batch
+    headroom (for REQ, one level of capacity points, which compact at
+    the flush): count, min and max stay exact."""
+    _, out = pair_flushed
+    rows = _rows(out[0][1])
+    v = _intervals()[0]["hot"]
+    assert rows[("hot.lat.count", ())][1] == 300.0
+    assert rows[("hot.lat.min", ())][1] == float(v.min())
+    assert rows[("hot.lat.max", ())][1] == float(v.max())
 
 
 def test_hot_slot_batch_is_exact(flushed):
@@ -188,12 +257,14 @@ def test_engine_defaults_to_cuda():
             tpipe.AggregationEngine(tpipe.EngineConfig(**CFG))
 
 
-@pytest.mark.parametrize("module", ["tdigest", "hll"])
+@pytest.mark.parametrize("module", ["tdigest", "hll", "req", "ull"])
 def test_bank_init_requires_a_device(module):
     """A bank is never placed on the CPU by default: the caller names
     the device, as the engine always does."""
     from veneur_tpu_torch.ops import hll, tdigest
-    init = {"tdigest": tdigest.init, "hll": hll.init}[module]
+    from veneur_tpu_torch.sketches import req, ull
+    init = {"tdigest": tdigest.init, "hll": hll.init, "req": req.init,
+            "ull": ull.init}[module]
     with pytest.raises(TypeError, match="device"):
         init(4)
     bank = init(4, device="cpu")
@@ -203,19 +274,66 @@ def test_bank_init_requires_a_device(module):
 @pytest.mark.parametrize("override", [
     {"forward_enabled": True}, {"is_global": True},
     {"flush_fetch": "staged"}, {"flush_fetch_f16": True},
-    {"histogram_backend": "req"}, {"set_backend": "ull"}])
+    {"flush_fetch": "host"}, {"flush_fetch": "async"}])
 def test_features_outside_the_slice_are_refused(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.EngineConfig(**override)
 
 
-def test_engine_stamp_matches_jax():
+@pytest.mark.parametrize("override", [
+    {"histogram_backend": "kll"}, {"set_backend": "cpc"},
+    {"ull_precision": 3}, {"ull_precision": 17}, {"req_levels": 0},
+    {"req_capacity": 24}, {"req_capacity": 100}])
+def test_bad_engine_settings_are_refused(override):
+    """The JAX config's checks (veneur_tpu/config.py) on the port's
+    EngineConfig."""
+    with pytest.raises(ValueError):
+        tpipe.EngineConfig(**override)
+
+
+@pytest.mark.parametrize("pair", [("tdigest", "hll")] + OTHER_PAIRS,
+                         ids="-".join)
+def test_engine_stamp_matches_jax(pair):
     from veneur_tpu import sketches as jsk
     assert sketches.DEFAULT_STAMP == jsk.DEFAULT_STAMP
-    teng = tpipe.AggregationEngine(tpipe.EngineConfig(**CFG), device="cpu")
-    cfg = jpipe.EngineConfig(**CFG)
+    kw = _pair_cfg(pair)
+    teng = tpipe.AggregationEngine(tpipe.EngineConfig(**kw), device="cpu")
+    cfg = jpipe.EngineConfig(**kw)
     assert teng.engine_stamp == jsk.engine_stamp(
         jsk.histogram_engine(cfg), jsk.set_engine(cfg))
+    assert sketches.stamp_compatible(teng.engine_stamp, teng.engine_stamp)
+    assert sketches.stamp_compatible(teng.engine_stamp, None) == \
+        (pair == ("tdigest", "hll"))
+
+
+@pytest.mark.parametrize("stamp", [
+    "h=tdigest/1,s=hll/1", "h=req/1,s=ull/1", "s=ull/2,h=tdigest/1q",
+    "h=tdigest", "garbage", "h=x/y,s=hll/1", "h=req/1"])
+def test_stamp_parsing_matches_jax(stamp):
+    from veneur_tpu import sketches as jsk
+    assert sketches.parse_stamp(stamp) == jsk.parse_stamp(stamp)
+    for other in ("h=tdigest/1,s=hll/1", "h=req/1,s=ull/1", None):
+        assert sketches.stamp_compatible(stamp, other) == \
+            jsk.stamp_compatible(stamp, other)
+
+
+@pytest.mark.parametrize("engine_id", ["hll", "ull"])
+def test_set_register_codec_matches_jax(engine_id):
+    from veneur_tpu import sketches as jsk
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 200, 1 << 10).astype(np.uint8)
+    b = rng.integers(0, 200, 1 << 10).astype(np.uint8)
+    data = sketches.encode_set_registers(engine_id, a)
+    assert data == jsk.encode_set_registers(engine_id, a)
+    back_id, back = sketches.decode_set_registers(data)
+    assert back_id == engine_id
+    np.testing.assert_array_equal(back, a)
+    np.testing.assert_array_equal(sketches.merge_registers(engine_id, a, b),
+                                  jsk.merge_registers(engine_id, a, b))
+    assert sketches.set_engine_for_id(engine_id, 10).id == engine_id
+    for bad in (b"\x07\x0a" + a.tobytes(), data[:-1], b"\x01"):
+        with pytest.raises(ValueError):
+            sketches.decode_set_registers(bad)
 
 
 def test_parsed_stream_is_identical():

@@ -61,7 +61,7 @@ def test_hll_stats_wrapper_on_cpu_runs_plain_and_counts_nothing():
     got = kh.hll_stats(regs)
     want = kh.hll_stats_plain(regs)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert kernels.launches == {"compress": 0, "hll_stats": 0}
+    assert all(n == 0 for n in kernels.launches.values())
 
 
 def test_hash_decomposition_matches_jax():

@@ -5,8 +5,10 @@ A JAX engine's banks, fetched as numpy leaves, become the port's banks
 bit for bit and go back unchanged; a port engine flushing those banks
 matches the JAX engine's flush of the same state at the contract levels
 of test_torch_engine (exact names, tags, types, counts, min, max,
-counters and gauges; percentiles within 1% of the key's spread; set
-estimates within rtol 1e-5).
+counters and gauges; t-digest percentiles within 1% of the key's
+spread, REQ percentiles within rtol 1e-4; HLL set estimates within rtol
+1e-5, ULL estimates exact). Both the default pair (t-digest + HLL) and
+REQ + ULL are carried across.
 """
 
 import numpy as np
@@ -101,3 +103,62 @@ def test_bad_leaves_are_refused(engines, damage):
         h["vmin"] = h["vmin"][:-1]
     with pytest.raises(ValueError):
         interop.banks_from_jax_numpy({**leaves, "histo": h}, "cpu")
+
+
+REQ_ULL = dict(CFG, histogram_backend="req", set_backend="ull",
+               req_capacity=32)
+
+
+@pytest.fixture(scope="module")
+def req_ull_engines():
+    jeng = jpipe.AggregationEngine(jpipe.EngineConfig(**REQ_ULL))
+    teng = tpipe.AggregationEngine(tpipe.EngineConfig(**REQ_ULL),
+                                   device="cpu")
+    # one key past a level's capacity, so its items compact at ingest
+    hot = [f"lat.0:{v:.3f}|ms|#k:0".encode()
+           for v in np.random.default_rng(22).lognormal(2, 1, 100)]
+    for ln in _stream() + hot:
+        jeng.process(j_parse(ln))
+        teng.process(t_parse(ln))
+    jeng.drain_all()
+    teng.drain_all()
+    return jeng, teng
+
+
+def test_req_ull_round_trip_is_bit_exact(req_ull_engines):
+    jeng, _ = req_ull_engines
+    leaves = _jax_leaves(jeng)
+    assert int(leaves["histo"]["ncomp"].sum()) > 0      # items compacted
+    banks = interop.banks_from_jax_numpy(leaves, "cpu", "req", "ull")
+    assert [type(b).__name__ for b in banks] == \
+        ["REQBank", "CounterBank", "GaugeBank", "ULLBank"]
+    back = interop.banks_to_numpy(banks)
+    for kind in leaves:
+        assert back[kind].keys() == leaves[kind].keys()
+        for name, a in leaves[kind].items():
+            assert back[kind][name].dtype == a.dtype
+            np.testing.assert_array_equal(back[kind][name], a,
+                                          err_msg=f"{kind}.{name}")
+
+
+def test_req_ull_flush_of_jax_state_matches_jax_flush(req_ull_engines):
+    jeng, teng = req_ull_engines
+    (teng.histo_bank, teng.counter_bank, teng.gauge_bank,
+     teng.set_bank) = interop.banks_from_jax_numpy(
+        _jax_leaves(jeng), "cpu", "req", "ull")
+    jr = {(m.name, tuple(m.tags)): m for m in jeng.flush(5).metrics}
+    tr = {(m.name, tuple(m.tags)): m for m in teng.flush(5).metrics}
+    assert tr.keys() == jr.keys() and len(tr) > 20
+    for key, m in tr.items():
+        w = jr[key]
+        assert m.type == w.type
+        if m.name.endswith("percentile"):
+            assert m.value == pytest.approx(w.value, rel=1e-4), key
+        else:
+            assert m.value == w.value, key
+
+
+def test_leaves_of_another_engine_are_refused(req_ull_engines):
+    leaves = _jax_leaves(req_ull_engines[0])
+    with pytest.raises(ValueError):
+        interop.banks_from_jax_numpy(leaves, "cpu")      # tdigest + hll

@@ -200,7 +200,7 @@ def test_compress_wrapper_on_cpu_runs_plain_and_counts_nothing():
     got = kc.fused_compress(*inputs, COMP)
     want = kc.compress_plain(*inputs, COMP)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert kernels.launches == {"compress": 0, "hll_stats": 0}
+    assert all(n == 0 for n in kernels.launches.values())
 
 
 def _fresh_pair(K, B):

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper and their wrappers.
 
-Each wrapper (compress.fused_compress, hll_stats.hll_stats) takes torch
-tensors. On a CUDA tensor it checks device, dtype, shape and
+Each wrapper (compress.fused_compress, hll_stats.hll_stats,
+ull_insert.fused_insert, probe.probe_add) takes torch tensors. On a
+CUDA tensor it checks device, dtype, shape and
 contiguity, launches its kernel on the current stream and adds one to
 its entry in `launches` — or raises; there is no fallback. On a CPU
 tensor it runs the kernel's plain torch version and counts nothing.
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 # launches of each kernel since the last reset (plain integers)
-launches = {"compress": 0, "hll_stats": 0}
+launches = {"compress": 0, "hll_stats": 0, "ull_insert": 0, "probe": 0}
 
 
 def reset_launches() -> None:

@@ -1,6 +1,7 @@
 """Build-at-first-use of the CUDA sources and their ctypes binding.
 
-One `nvcc -shared` call compiles every `csrc/*.cu` into one library
+Every `csrc/*.cu` is compiled by its own `nvcc -c`, all started
+together, and one `nvcc -shared` links the objects into one library
 under `veneur_tpu_torch/_build/` (listed in .gitignore). The library's name
 carries a hash of the sources and flags, so an edited source builds
 anew and an unchanged one is reused. The C entry points take plain
@@ -36,6 +37,8 @@ ENTRIES = {
     "vt_compress": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P], _I),
     "vt_compress_smem_bytes": ([_I, _I], _S),
     "vt_hll_stats": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "vt_ull_insert": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "vt_probe": ([_P, _P, _I, _I, _P], _I),
 }
 
 
@@ -75,13 +78,30 @@ def build() -> tuple:
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        try:
+            for src in sources():
+                obj = os.path.join(tmp, os.path.basename(src) + ".o")
+                objs.append(obj)
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+            outs = [p.communicate()[0].decode() for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        log = "".join(outs)
+        if any(p.returncode != 0 for p in procs):
+            raise NvccError("nvcc failed\n" + log)
         tmp_so = os.path.join(tmp, "lib.so")
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_so,
-                               *sources()],
+                               *objs],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        log = proc.stdout.decode()
+        log += proc.stdout.decode()
         if proc.returncode != 0:
-            raise NvccError("nvcc failed\n" + log)
+            raise NvccError("nvcc link failed\n" + log)
         os.replace(tmp_so, path)
     return path, time.monotonic() - t0, log
 

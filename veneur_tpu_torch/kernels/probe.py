@@ -1,0 +1,44 @@
+"""Wrapper of the availability probe kernel (csrc/probe.cu).
+
+Counterpart of veneur_tpu/kernels/__init__.py:probe_interpret: can this
+card run a trivial kernel from the built library before the real ones?
+`probe_add` computes x + 1; on a CUDA tensor it launches the kernel, on
+a CPU tensor it runs the plain version, `probe_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import check_launch, launches, require_cuda, stream_handle
+
+SHAPE = (8, 128)
+
+
+def probe_plain(x):
+    return x + 1.0
+
+
+def probe_add(x):
+    """x + 1 for an f32 tensor."""
+    if x.device.type == "cpu":
+        return probe_plain(x)
+    require_cuda("probe x", x, torch.float32, 2)
+    if x.numel() == 0:
+        raise ValueError("probe: empty tensor")
+    out = torch.empty_like(x)
+    from ._build import load
+    lib = load()
+    with torch.cuda.device(x.device):
+        err = lib.vt_probe(x.data_ptr(), out.data_ptr(), x.numel(),
+                           x.device.index, stream_handle(x.device))
+    check_launch(err, "probe")
+    launches["probe"] += 1
+    return out
+
+
+def probe(device) -> bool:
+    """Build (on first use) and run the probe on `device`: True when
+    every element of zeros(8, 128) + 1 reads 1.0."""
+    x = torch.zeros(SHAPE, dtype=torch.float32, device=device)
+    return bool((probe_add(x) == 1.0).all())

@@ -6,17 +6,23 @@ reference's hot path from Worker.ProcessMetric down through Server.Flush
 
   ingest:  parsed UDPMetric -> host staging buffers (numpy, fixed batch
            width) -> one batch of tensor ops per full batch
-  flush:   the retiring interval's banks -> compress (the CUDA compress
-           kernel on the card) + quantiles + aggregates + set estimate
-           (the CUDA hll_stats kernel on the card) + counter/gauge
-           finalization -> one fetch to host -> a columnar MetricFrame
+  flush:   the retiring interval's banks -> compress + quantiles +
+           aggregates + the device half of the set estimate +
+           counter/gauge finalization -> one fetch to host -> the host
+           half of the set estimate -> a columnar MetricFrame
+
+The sketch pair comes from the engine registry (sketches/): t-digest or
+REQ for histograms, HLL or ULL for sets. On the card the t-digest
+compress, the HLL estimate reduction and the ULL insert are hand-written
+CUDA kernels (kernels/); REQ and the ULL value histogram are eager torch.
 
 PyTorch runs eagerly, so the JAX package's cached executables, output
 shardings and buffer donation have no counterpart here: every op is a
 plain function on tensors, and the flush "program" is a Python function
-over the four banks. The t-digest and HLL ingest ops update their bank's
-sample buffers / registers in place (see ops/tdigest.py, ops/hll.py);
-the banks they write are always the engine's own live or retired banks.
+over the four banks. The sketch ingest ops update their bank's sample
+buffers, items or registers in place (see ops/tdigest.py, ops/hll.py,
+sketches/req.py, sketches/ull.py); the banks they write are always the
+engine's own live or retired banks.
 
 The flush is incremental and double-buffered, as in the JAX package:
 under the lock the tick only swaps the stage buffers, banks and dirty-
@@ -27,10 +33,10 @@ flushed, and the host overlays them on the baseline row of an empty
 flush — bit-identical to flushing every row, because every op of the
 flush is row-local and a fresh row is a fixed point of the compress.
 
-This slice is local-only: forwarding, the global tier's imports,
-checkpoints, admission control, the relayed-backend fetch modes and the
-non-default sketch engines are refused by EngineConfig (ROADMAP queue A
-names where each will be ported).
+This port is local-only so far: forwarding, the global tier's imports,
+checkpoints, admission control and the relayed-backend fetch modes are
+refused by EngineConfig (ROADMAP queue A names where each will be
+ported).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 
 from .. import sketches
 from ..ingest.parser import UDPMetric
+from ..kernels import probe as kprobe
 from ..metrics import InterMetric, MetricFrame, MetricType
 from ..ops import scalar
 from ..utils import hashing
@@ -83,7 +90,9 @@ def _flush_program_body(heng, seng, agg_emit):
                          exact value = f64(hi) + f64(lo) on host
       cnt      [K]       folded count for liveness (only when `count` is
                          not a configured aggregate)
-      c_hi/c_lo [Kc], g_value [Kg], g_seq i32[Kg], s_est [Ks]
+      c_hi/c_lo [Kc], g_value [Kg], g_seq i32[Kg]
+      s_est [Ks] (HLL) or s_counts i32[Ks, 256] (ULL; the host half
+                         of the estimate turns it into s_est)
     """
     def program(hb, cb, gb, sb, qs):
         hb = heng.compress(hb)
@@ -91,7 +100,9 @@ def _flush_program_body(heng, seng, agg_emit):
         out = {"q": heng.quantile(hb, qs),
                "c_hi": cb.hi, "c_lo": cb.lo,
                "g_value": gb.value, "g_seq": gb.seq}
-        out.update(seng.estimate(sb))
+        # the device half of the set estimate; the host half
+        # (estimate_finalize) runs on the fetched arrays
+        out.update(seng.estimate_device(sb))
         cols = []
         for a in agg_emit:
             if a == "count":
@@ -163,6 +174,9 @@ class EngineConfig:
     hll_precision: int = 14
     histogram_backend: str = "tdigest"
     set_backend: str = "hll"
+    ull_precision: int = 13
+    req_levels: int = 2
+    req_capacity: int = 256
     batch_size: int = 8192
     percentiles: tuple = (0.5, 0.75, 0.99)
     aggregates: tuple = ("min", "max", "count")
@@ -185,12 +199,24 @@ class EngineConfig:
                 f"flush_fetch={self.flush_fetch!r} "
                 f"flush_fetch_f16={self.flush_fetch_f16!r}",
                 "item 16, flush fetch modes")
-        if self.histogram_backend not in sketches.HISTOGRAM_BACKENDS \
-                or self.set_backend not in sketches.SET_BACKENDS:
-            raise _not_ported(
-                f"histogram_backend={self.histogram_backend!r} "
-                f"set_backend={self.set_backend!r}",
-                "item 12, non-default engines")
+        if self.histogram_backend not in sketches.HISTOGRAM_BACKENDS:
+            raise ValueError(
+                f"histogram_backend must be one of "
+                f"{', '.join(sketches.HISTOGRAM_BACKENDS)}, got "
+                f"{self.histogram_backend!r}")
+        if self.set_backend not in sketches.SET_BACKENDS:
+            raise ValueError(
+                f"set_backend must be one of "
+                f"{', '.join(sketches.SET_BACKENDS)}, got "
+                f"{self.set_backend!r}")
+        if not (4 <= self.ull_precision <= 16):
+            raise ValueError("ull_precision must be in [4, 16]")
+        if self.req_levels < 1 or self.req_capacity < 32 \
+                or self.req_capacity % 8:
+            raise ValueError(
+                "req_levels must be >= 1 and req_capacity a multiple of 8 "
+                ">= 32 (the compactor's protect/trigger sections need the "
+                "room)")
         if self.buffer_depth < 8:
             raise ValueError("buffer_depth must be >= 8 (hot-slot "
                              "pre-clustering needs usable bucket room)")
@@ -255,13 +281,20 @@ class _Stage:
 class AggregationEngine:
     def __init__(self, config: EngineConfig | None = None, device=None):
         """`device` defaults to "cuda"; with no card present that raises —
-        the engine never carries on on the CPU unless asked to."""
+        the engine never carries on on the CPU unless asked to. On the
+        card the kernel library is built (on first use) and the probe
+        kernel must run before any bank is made."""
         self.cfg = cfg = config or EngineConfig()
         self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "AggregationEngine: no CUDA device is available; pass "
-                "device='cpu' to run on the CPU")
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "AggregationEngine: no CUDA device is available; pass "
+                    "device='cpu' to run on the CPU")
+            if not kprobe.probe(self.device):
+                raise RuntimeError(
+                    f"AggregationEngine: the probe kernel gave a wrong "
+                    f"result on {self.device}")
         # One ingest thread owns process(); flush() may run from another
         # thread. Ingest holds the lock per item; flush holds it only
         # across the swap and the bookkeeping.
@@ -593,10 +626,15 @@ class AggregationEngine:
         return retired
 
     def _fetch(self, out: dict) -> dict:
-        """The flush's one device-to-host transfer."""
+        """The flush's one device-to-host transfer, then the host half of
+        the set estimate (ULL's ML solve; nothing for HLL). Every fetch
+        of flush outputs — full, compact and the baseline rows — goes
+        through here, so all three carry the same keys."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        self._seng.estimate_finalize(host)
+        return host
 
     def _flush_device(self, snap, dirty=None) -> dict:
         """Run the flush body on the retired banks and fetch the host

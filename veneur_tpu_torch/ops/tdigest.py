@@ -308,6 +308,41 @@ def _scalar_fold(bank: TDigestBank, s, valid, dsum, dcount, drecip,
         vsum_lo=vsum_lo, count_lo=count_lo, recip_lo=recip_lo)
 
 
+def add_scalar_stats(bank, s, valid, v, w):
+    """Fold one batch of (slot, value, weight) samples into the exact
+    scalar leaves — the `add_scalar_stats` of veneur_tpu/sketches/base.py.
+    Like `_scalar_fold`, `merge_scalars`, `aggregates` and
+    `merge_scalar_banks`, it reads the leaves by name, so it serves every
+    histogram bank that carries them (TDigestBank, REQBank)."""
+    K = bank.num_slots
+    recip_terms = torch.where(
+        v != 0, w / torch.where(v != 0, v, torch.ones_like(v)),
+        torch.zeros_like(v))
+    return _scalar_fold(
+        bank, s, valid,
+        scatter.segment_sum_f64(s, w * v, K, valid),
+        scatter.segment_sum_f64(s, w, K, valid),
+        scatter.segment_sum_f64(s, recip_terms, K, valid),
+        torch.where(valid, v, _INF), torch.where(valid, v, -_INF))
+
+
+def merge_scalar_banks(a, b) -> dict:
+    """Bit-commutative whole-bank merge of the exact scalar leaves (the
+    `merge_scalar_banks_np` of veneur_tpu/sketches/base.py, on tensors):
+    each 2Sum pair's exact value f64(hi) + f64(lo) is added in float64,
+    which is commutative bit for bit, then split into hi + lo again."""
+    out = {"vmin": torch.minimum(a.vmin, b.vmin),
+           "vmax": torch.maximum(a.vmax, b.vmax)}
+    for hi, lo in (("vsum", "vsum_lo"), ("count", "count_lo"),
+                   ("recip", "recip_lo")):
+        s = (getattr(a, hi).double() + getattr(a, lo).double()) \
+            + (getattr(b, hi).double() + getattr(b, lo).double())
+        h = s.float()
+        out[hi] = h
+        out[lo] = (s - h.double()).float()
+    return out
+
+
 def _write_buffers(bank: TDigestBank, s, pos, v, w, can):
     """Write the `can` samples at (slot, pos) of the sample buffers, in
     place. Positions are distinct per slot (ranks), so the write is
@@ -334,15 +369,7 @@ def _add_batch_impl(bank: TDigestBank, slots, values, weights,
     valid = (s >= 0) & (s < K)
     sc = s.clamp(0, K - 1).long()
 
-    recip_terms = torch.where(
-        v != 0, w / torch.where(v != 0, v, torch.ones_like(v)),
-        torch.zeros_like(v))
-    bank = _scalar_fold(
-        bank, s, valid,
-        scatter.segment_sum_f64(s, w * v, K, valid),
-        scatter.segment_sum_f64(s, w, K, valid),
-        scatter.segment_sum_f64(s, recip_terms, K, valid),
-        torch.where(valid, v, _INF), torch.where(valid, v, -_INF))
+    bank = add_scalar_stats(bank, s, valid, v, w)
 
     batch_per_slot = scatter.segment_count(s, valid, K)
     if not bool((bank.buf_n + batch_per_slot > B).any()):
