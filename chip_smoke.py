@@ -12,9 +12,11 @@ the run:
   1. build     nvcc compiles veneur_tpu_torch/csrc/*.cu (one nvcc per
                source, all started together, then one link) into one
                library under veneur_tpu_torch/_build/ (keyed on a hash
-               of the sources); prints the build seconds and the ptxas
-               report, then launches the probe kernel (x + 1 on
-               f32[8, 128]) and fails unless every element reads 1.0.
+               of the sources); prints the build seconds, the ptxas
+               report and the compress kernel's shared memory and rows
+               in flight per SM at the serving shape, then launches the
+               probe kernel (x + 1 on f32[8, 128]) and fails unless
+               every element reads 1.0.
   2. compress  the t-digest compress kernel against its plain torch
                version at the serving shape (K=32768 rows, C=256
                centroids, B=256 buffer) with a legal centroid prefix and
@@ -46,7 +48,11 @@ the run:
                engine with the incremental flush off (not counted) is fed
                the same data and must flush bit-identical rows.
   6. timing    median kernel and plain-version times at the serving
-               shapes, against each kernel's bound, and the flush times.
+               shapes, each kernel's device time from torch.profiler and
+               its host share (time a call - device time), against each
+               kernel's bound, and the flush times. The probe and
+               torch.add(x, 1.0) are timed in turns, call against call
+               and device against device.
 
 Then it prints one JSON line describing every kernel, the card's name
 and power limit as nvidia-smi reports them, and, last, the device line
@@ -69,11 +75,12 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks (dense): HBM bandwidth and f32 rate outside
-# the tensor cores; a kernel's bound is the larger of bytes / bandwidth
-# and operations / rate.
+# H100 SXM data-sheet peaks (dense): HBM bandwidth, and the f32 and
+# float64 rates outside the tensor cores; a kernel's bound is the larger
+# of bytes / bandwidth and the time of its operations at their rates.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 
 # serving shapes at the default EngineConfig
 SERVE_K, SERVE_C, SERVE_B = 32768, 256, 256
@@ -115,28 +122,29 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def time_ms(fn, device, reps, warmup=1):
-    """Median milliseconds of `fn()` over `reps` runs, each bracketed by
-    CUDA events on the card (host clock on the CPU, for rehearsals)."""
+def call_ms(fn, device):
+    """Milliseconds of one `fn()`, bracketed by CUDA events on the card
+    (host clock on the CPU, for rehearsals)."""
     import torch
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def time_ms(fn, device, reps, warmup=1):
+    """Median milliseconds of `fn()` over `reps` runs (`call_ms`)."""
     for _ in range(warmup):
         fn()
     sync(device)
-    times = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return statistics.median(call_ms(fn, device) for _ in range(reps))
 
 
 class GcPauses:
@@ -179,12 +187,20 @@ def phase_build(device):
     plain version."""
     import torch
     from veneur_tpu_torch.kernels import _build, probe
+    from veneur_tpu_torch.kernels import compress as kc
     _build.load()
     path, secs, log = _build.last_build
     print(f"library {os.path.relpath(path, ROOT)} built in {secs:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "smem" in line or "error" in line:
+        if any(w in line for w in ("entry function", "registers", "smem",
+                                   "spill", "error")):
             print("  " + line.strip())
+    props = torch.cuda.get_device_properties(device)
+    occ = {"smem_bytes_a_row": kc.smem_bytes(SERVE_C, SERVE_B),
+           "rows_per_sm": kc.blocks_per_sm(SERVE_C, SERVE_B, device.index),
+           "sms": props.multi_processor_count}
+    occ["waves"] = -(-SERVE_K // (occ["rows_per_sm"] * occ["sms"]))
+    print(f"compress occupancy at C={SERVE_C} B={SERVE_B}: {json.dumps(occ)}")
     x = torch.zeros(probe.SHAPE, dtype=torch.float32, device=device)
     out = probe.probe_add(x)
     plain = probe.probe_plain(x)
@@ -194,7 +210,7 @@ def phase_build(device):
     err = float((out - plain).abs().max())
     print(f"probe: every element of {list(probe.SHAPE)} reads 1.0")
     return {"build_s": secs, "library": os.path.relpath(path, ROOT),
-            "max_abs_err": err}
+            "max_abs_err": err, "compress_occupancy": occ}
 
 
 # ------------------------------------------------------------- phase 2
@@ -429,8 +445,11 @@ def ull_insert_inputs(device, K, m, n, seed=3):
     slots[i:i + 400] = 8             # the four registers of one word
     idx[i:i + 400] = 100 + np.arange(400) % 4
     i += 400
-    slots[i:i + 3] = (K, 0, 1)       # outside the bank: dropped
-    idx[i:i + 3] = (0, m, -1)
+    # the uint32 flat key slot * m + idx: (K, 0) and (1, -2m) name no
+    # register and are dropped; (0, m) lands on row 1's register 0 and
+    # (1, -1) on row 0's last register
+    slots[i:i + 4] = (K, 1, 0, 1)
+    idx[i:i + 4] = (0, -2 * m, m, -1)
 
     def t(a):
         return torch.as_tensor(a, device=device)
@@ -867,33 +886,56 @@ def phase_main(device, path="default", cfg_kw=None, plan=None):
 def time_fresh_ms(fn, make, device, reps):
     """Median milliseconds of `fn(make())` with `make()` (a fresh copy of
     state the function updates in place) outside the timed window."""
-    import torch
     fn(make())
     times = []
     for _ in range(reps):
         arg = make()
         sync(device)
-        if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn(arg)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn(arg)
-            times.append((time.perf_counter() - t0) * 1e3)
+        times.append(call_ms(lambda: fn(arg), device))
     return statistics.median(times)
+
+
+def time_turns_ms(fns, device, reps):
+    """Median milliseconds of one call of each function in `fns` (a
+    name -> callable dict), timed as `time_ms` does but in turns — one
+    call of each per round — so that every function sees the same state
+    of the card and host."""
+    for fn in fns.values():
+        fn()
+    sync(device)
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            times[name].append(call_ms(fn, device))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def calls_device_ms(fn, n, device):
+    """Mean device time of one `fn()` from torch.profiler's trace of the
+    card: the device time of every kernel the n calls launched, over n.
+    For a PyTorch call whose kernel has no symbol of ours; None when the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        sync(device)
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA]
+    if not evs:
+        return None
+    return sum(ev.self_device_time_total for ev in evs) / n / 1e3
 
 
 def kernel_device_ms(calls, device):
     """Mean device time of one launch of each kernel, from
     torch.profiler's trace of the card: `calls` maps a kernel's symbol in
     csrc/ to callables that each launch it once. The per-call times of
-    `time_ms` also hold the host's share of a call (Python, ctypes, the
-    argument checks); this is the kernel alone."""
+    `time_ms` also hold the host's share of a call (Python, the binding,
+    the argument checks); this is the kernel alone."""
     from torch.profiler import ProfilerActivity, profile
     sync(device)
     with profile(activities=[ProfilerActivity.CPU,
@@ -910,23 +952,46 @@ def kernel_device_ms(calls, device):
     return out
 
 
-def compress_bound_ms(K, C, B):
-    """Least time for one compress: read mean, weight, buf_value,
-    buf_weight once and write two [K, C] outputs; the operations are the
-    two comparison networks (a bitonic sort of B and a merge of the
-    padded row, ~8 integer ops per exchange) plus ~40 float ops per
-    element for the sums, k1 and the cluster tail, at the f32 rate."""
+def compress_bound_ms(K, C, B, live, boundaries):
+    """Least time for one compress of K rows holding `live` positive
+    weights and `boundaries` clusters in all (what this run's data needs
+    of k1 and of the greedy recurrence).
+
+    Bytes: read mean, weight, buf_value, buf_weight once and write two
+    [K, C] outputs. Operations, each share at its own rate:
+      - float64 (34 TFLOP/s): per element of the M = C + B lanes, the
+        weighted term and both blocked sums (5); per live lane, k1 at its
+        right edge (48: ~32 for asin, ~10 for the division, 6 for the
+        clamp and the affine steps) and its left edge's subtraction and
+        comparison with the previous lane's cum (2) — a left edge equal to
+        that cum has the same k1, so one more k1 a row is counted, for
+        its first lane; per centroid, the segment differences and the
+        mean's division (13);
+      - f32 rate (67 TFLOP/s): the buffer sort (Pb * log2(Pb)
+        comparisons, a comparison sort's order of work, B padded to the
+        power of two Pb) and the merge network of the P-lane row (P/2 *
+        log2(P) exchanges; the plain version's result is that network's),
+        8 integer ops a comparison; the canonical keys (4 an element);
+        the greedy recurrence (a subtraction and a comparison a live lane
+        under the running k_start, and one update a boundary); the cluster
+        ends' binary searches (3 ops a step) and the running max (10 a
+        centroid).
+    The bound is max(bytes / bandwidth, f64 time + f32 time)."""
     M = C + B
     P = 1 << (M - 1).bit_length()
     Pb = 1 << (B - 1).bit_length()
-    lb = Pb.bit_length() - 1
-    exchanges = (Pb // 2) * lb * (lb + 1) // 2 + (P // 2) * (
+    comparisons = Pb * (Pb.bit_length() - 1) + (P // 2) * (
         P.bit_length() - 1)
-    ops = K * (8 * exchanges + 40 * M)
+    f64_ops = K * (5 * M + 48 + 13 * C) + live * (48 + 2)
+    f32_ops = K * (8 * comparisons + 4 * M + 3 * C * M.bit_length()
+                   + 10 * C) + 2 * live + boundaries
     nbytes = 4 * K * (2 * C + 2 * B) + 4 * K * 2 * C
-    return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3, \
-        ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-         else "operations"), nbytes, ops
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = f64_ops / F64_OPS_PER_S + f32_ops / F32_OPS_PER_S
+    return max(bytes_s, ops_s) * 1e3, \
+        "bytes" if bytes_s >= ops_s else "operations", nbytes, \
+        f64_ops + f32_ops, {"f64_ops": f64_ops, "f32_ops": f32_ops,
+                            "bytes_ms": bytes_s * 1e3, "ops_ms": ops_s * 1e3}
 
 
 def hll_bound_ms(K, m):
@@ -942,12 +1007,15 @@ def hll_bound_ms(K, m):
 def ull_insert_bound_ms(slots, idx, K, m):
     """Read the update arrays once (9 bytes an update: slot, index,
     value) and read and write each distinct 32-bit word that this
-    batch's valid updates touch (8 bytes a word); ~20 integer operations
-    an update (address, byte lane, join), at the f32 rate."""
+    batch's live updates touch (8 bytes a word); ~20 integer operations
+    an update (address, byte lane, join), at the f32 rate. An update is
+    live as the kernel keys it: slot >= 0 and its uint32 flat index
+    below K*m."""
     s = slots.cpu().numpy().astype(np.int64)
     i = idx.cpu().numpy().astype(np.int64)
-    ok = (s >= 0) & (s < K) & (i >= 0) & (i < m)
-    words = np.unique((s[ok] * m + i[ok]) >> 2).size
+    flat = ((s & 0xFFFFFFFF) * m + (i & 0xFFFFFFFF)) & 0xFFFFFFFF
+    ok = (s >= 0) & (flat < K * m)
+    words = np.unique(flat[ok] >> 2).size
     nbytes = 9 * len(s) + 8 * words
     ops = 20 * int(ok.sum())
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -965,7 +1033,11 @@ def probe_bound_ms(n):
 
 def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
                  KS=SERVE_SETS, m=SERVE_M, mu=SERVE_ULL_M, n=SERVE_BATCH,
-                 reps=(20, 3)):
+                 reps=(20, 3, 200)):
+    """Per kernel: the median time a call (CUDA events around the
+    wrapper, so the host's share of the call is in it), the plain
+    version's, the device time from torch.profiler and the bound. The
+    probe and torch.add(x, 1.0) run in turns, reps[2] rounds."""
     import torch
     from veneur_tpu_torch.kernels import compress as kc
     from veneur_tpu_torch.kernels import hll_stats as kh
@@ -975,13 +1047,17 @@ def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
     args = compress_inputs(device, K, C, B)
     regs = hll_inputs(device, KS, m)
     out = {}
-    bound, by, nbytes, ops = compress_bound_ms(K, C, B)
+    live = int((args[1] > 0).sum() + (args[3] > 0).sum())
+    boundaries = int((kc.fused_compress(*args, 100.0)[1] > 0).sum())
+    bound, by, nbytes, ops, parts = compress_bound_ms(K, C, B, live,
+                                                      boundaries)
     out["compress"] = {
         "ms": time_ms(lambda: kc.fused_compress(*args, 100.0), device,
                       reps[0]),
         "plain_ms": time_ms(lambda: kc.compress_plain(*args, 100.0),
                             device, reps[1]),
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
+        "bound_parts": parts, "live": live, "boundaries": boundaries,
         "shape": [K, C, B]}
     bound, by, nbytes, ops = hll_bound_ms(KS, m)
     out["hll_stats"] = {
@@ -1006,10 +1082,13 @@ def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
         "shape": [KS, mu, n]}
     x = torch.zeros(kp.SHAPE, dtype=torch.float32, device=device)
     bound, by, nbytes, ops = probe_bound_ms(x.numel())
+    turns = time_turns_ms({"probe": lambda: kp.probe_add(x),
+                           "add": lambda: torch.add(x, 1.0)}, device,
+                          reps[2])
     out["probe"] = {
-        "ms": time_ms(lambda: kp.probe_add(x), device, reps[0]),
+        "ms": turns["probe"],
         "plain_ms": time_ms(lambda: kp.probe_plain(x), device, reps[0]),
-        "library_ms": time_ms(lambda: torch.add(x, 1.0), device, reps[0]),
+        "library_ms": turns["add"],
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
         "shape": list(kp.SHAPE)}
     if device.type == "cuda":
@@ -1023,6 +1102,8 @@ def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
             "probe_kernel": [lambda: kp.probe_add(x)] * 10}, device)
         for name in out:
             out[name]["device_ms"] = dev_ms.get(f"{name}_kernel")
+        out["probe"]["library_device_ms"] = calls_device_ms(
+            lambda: torch.add(x, 1.0), 10, device)
     return out
 
 
@@ -1080,13 +1161,30 @@ def main() -> int:
         return 1
 
     timing = report["timing"]
+
+    def split(call_ms, dev_ms):
+        """'<device> ms on the device, host <call - device> ms'"""
+        if dev_ms is None:
+            return "device and host shares not measured"
+        return f"{dev_ms:.4f} ms on the device, host {call_ms - dev_ms:.4f} ms"
+
     for name, t in timing.items():
-        lib = (f", library {t['library_ms']:.4f} ms"
+        lib = (f", library {t['library_ms']:.4f} ms a call "
+               f"({split(t['library_ms'], t['library_device_ms'])})"
                if "library_ms" in t else "")
         print(f"timing {name} {t['shape']}: kernel {t['ms']:.4f} ms a call "
-              f"({t['device_ms']} ms on the device), "
+              f"({split(t['ms'], t['device_ms'])}), "
               f"plain {t['plain_ms']:.4f} ms{lib}, bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']}) | {card}")
+    comp = timing["compress"]
+    print(f"timing compress bound: {json.dumps(comp['bound_parts'])}, "
+          f"{comp['live']} live lanes, {comp['boundaries']} boundaries "
+          f"| {card}")
+    probe_t = timing["probe"]
+    print(f"timing probe vs torch.add, in turns: {probe_t['ms']:.4f} vs "
+          f"{probe_t['library_ms']:.4f} ms a call, "
+          f"{'not ' if probe_t['ms'] > probe_t['library_ms'] else ''}"
+          f"within torch.add's | {card}")
     for path, out in main_out.items():
         for label, rec in out["intervals"].items():
             print(f"timing flush {path} {label} ({rec['path']}): "

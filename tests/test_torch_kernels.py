@@ -35,10 +35,20 @@ def test_probe_agrees_with_the_jax_probe():
 
 def test_every_entry_is_defined_with_its_arity():
     text = "".join(open(p).read() for p in _build.sources())
-    for name, (argtypes, _) in _build.ENTRIES.items():
+    for name, fmt in _build.ENTRIES.items():
         m = re.search(rf"\b(?:int|size_t)\s+{name}\s*\(([^)]*)\)", text)
         assert m, f"{name} is not defined in csrc/"
-        assert len(m.group(1).split(",")) == len(argtypes), name
+        assert len(m.group(1).split(",")) == len(fmt), name
+
+
+def test_every_entry_is_bound_with_its_format():
+    """csrc/bindings.cpp converts each entry's arguments by the format
+    that ENTRIES lists, and exports it under the entry's name."""
+    text = open(_build.BINDINGS).read()
+    for name, fmt in _build.ENTRIES.items():
+        assert f'parse("{name}", "{fmt}",' in text, name
+        assert f'{{"{name}", FASTCALL(' in text, name
+    assert text.count("FASTCALL(py_") == len(_build.ENTRIES)
 
 
 def test_every_counted_kernel_has_a_source():
@@ -79,13 +89,13 @@ def test_build_compiles_each_source_then_links(fake_nvcc, monkeypatch):
     path, _secs, _log = _build.build()
     assert os.path.isfile(path)
     calls = fake_nvcc.read_text().splitlines()
-    srcs = _build.sources()
+    srcs = _build.sources() + [_build.BINDINGS]
     compiles = [c for c in calls if " -c " in f" {c} "]
     assert len(compiles) == len(srcs) == len(calls) - 1
     assert sorted(c.split()[-1] for c in compiles) == sorted(srcs)
     link = calls[-1].split()
     assert "-shared" in link
-    assert sum(a.endswith(".cu.o") for a in link) == len(srcs)
+    assert sum(a.endswith((".cu.o", ".cpp.o")) for a in link) == len(srcs)
     # an unchanged tree is not built again
     assert _build.build()[1] == 0.0
     assert len(fake_nvcc.read_text().splitlines()) == len(calls)
@@ -97,3 +107,20 @@ def test_build_fails_loudly_when_a_source_does_not_compile(fake_nvcc,
     with pytest.raises(_build.NvccError):
         _build.build()
     assert not os.path.exists(_build.library_path())
+
+
+def test_compress_clock_stamps_follow_the_kernel_source():
+    """compress_clocks.py stamps the row start and every barrier that
+    stands on its own line of csrc/compress.cu, and refuses a source
+    that has lost its anchors (it runs only on the card)."""
+    import compress_clocks
+    src = open(os.path.join(_build.CSRC_DIR, "compress.cu")).read()
+    out = compress_clocks.instrumented_source(src)
+    bare = sum(line.strip() == "__syncthreads();"
+               for line in src.splitlines())
+    assert bare > 10
+    assert out.count("vt_clk[row * ") == bare + 1
+    assert out.count("__syncthreads();") == src.count("__syncthreads();")
+    with pytest.raises(RuntimeError):
+        compress_clocks.instrumented_source(
+            src.replace('#include "device_guard.cuh"', ""))

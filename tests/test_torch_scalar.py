@@ -49,17 +49,19 @@ def test_scatter_helpers_match_jax(n, K):
         np.asarray(jsx.segment_count(js, jnp.asarray(mask), K)))
 
 
-def test_segment_count_drops_padding_under_a_true_mask():
-    """A divergence, recorded in ROADMAP section C: with a mask that
-    admits a padding row (slot -1), the JAX helper's scatter wraps the
-    negative index onto slot K-1; the port drops it. No caller of
-    either package passes such a mask."""
-    slots = np.array([-1, 0, 2, -1], np.int32)
-    mask = np.ones(4, bool)
-    t = tsx.segment_count(torch.as_tensor(slots), torch.as_tensor(mask), 3)
-    j = jsx.segment_count(jnp.asarray(slots), jnp.asarray(mask), 3)
-    np.testing.assert_array_equal(t.numpy(), [1, 0, 1])
-    np.testing.assert_array_equal(np.asarray(j), [1, 0, 3])
+def test_segment_count_wraps_negative_ids_as_jax_does():
+    """With a mask that admits negative ids, the port's segment_count
+    equals the JAX helper's: an id in [-K, -1] wraps onto id + K (slot
+    -1 counts on slot K-1), and what is still outside [0, K) is dropped.
+    No caller of either package passes such a mask."""
+    K = 3
+    slots = np.array([-1, 0, 2, -1, -3, -4, 3, 7, -1, 1], np.int32)
+    mask = np.ones(len(slots), bool)
+    mask[-2:] = False
+    t = tsx.segment_count(torch.as_tensor(slots), torch.as_tensor(mask), K)
+    j = jsx.segment_count(jnp.asarray(slots), jnp.asarray(mask), K)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(t.numpy(), [2, 0, 3])
 
 
 def _totals_t(b):

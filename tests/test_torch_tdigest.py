@@ -194,6 +194,142 @@ def test_sort_and_merge_pieces_are_exact():
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
 
 
+def _blocked_cumsum_np(x, chunk):
+    """numpy reproduction of the documented blocked order, one row and
+    one scalar addition at a time: sequential sums inside chunks of
+    `chunk` lanes, a sequential scan of the chunk totals, then each
+    lane's chunk offset added to its local sum."""
+    M = x.shape[0]
+    local = np.empty(M, np.float64)
+    offs = []
+    off = np.float64(0.0)
+    for lo in range(0, M, chunk):
+        run = np.float64(0.0)
+        for i in range(lo, min(lo + chunk, M)):
+            run = run + x[i]
+            local[i] = run
+        offs.append(off)
+        off = off + run
+    return np.array([offs[i // chunk] + local[i] for i in range(M)])
+
+
+@pytest.mark.parametrize("C,B", [(256, 256), (64, 512), (128, 172)])
+def test_cluster_tail_sums_follow_the_blocked_order(C, B, monkeypatch):
+    """The float64 cumulative weights and weighted values of
+    `_cluster_tail` equal, bit for bit, a numpy reproduction of the
+    blocked order that the compress kernel also follows: M = 512, the
+    C=64/B=512 overflow clip (M = 576), and M = 300, whose last chunk is
+    ragged."""
+    rng = np.random.default_rng(C + B)
+    K, M = 4, C + B
+    wts = (np.abs(rng.normal(1, 0.5, (K, M))) + 0.01).astype(np.float32)
+    wts[:, M - 40:] = 0.0                      # empty lanes at the tail
+    wts[1, 7] = 3e7                            # a sum past 2^24
+    vals = np.sort(rng.lognormal(3, 2, (K, M)), axis=1).astype(np.float32)
+    vals = np.where(wts > 0, vals, np.float32(np.inf))
+    seen = []
+    real = ttd._blocked_cumsum
+
+    def spy(x):
+        out = real(x)
+        seen.append((x.clone(), out.clone()))
+        return out
+
+    monkeypatch.setattr(ttd, "_blocked_cumsum", spy)
+    ttd._cluster_tail(torch.as_tensor(vals), torch.as_tensor(wts), COMP, C)
+    (terms, sums), = seen
+    assert terms.shape == (K, 2, M) and terms.dtype == torch.float64
+    w64 = wts.astype(np.float64)
+    np.testing.assert_array_equal(terms[:, 0].numpy(), w64)
+    np.testing.assert_array_equal(
+        terms[:, 1].numpy(),
+        w64 * np.where(wts > 0, vals, 0).astype(np.float64))
+    for r in range(K):
+        for a in range(2):
+            want = _blocked_cumsum_np(terms[r, a].numpy(), ttd.SUM_CHUNK)
+            got = sums[r, a].numpy()
+            assert got.tobytes() == want.tobytes(), (r, a)
+            # non-decreasing for non-negative terms
+            if a == 0:
+                assert (np.diff(got) >= 0).all()
+
+
+def _ballot_boundaries(kl, kr, live):
+    """A model of the compress kernel's greedy recurrence, one row, in
+    its two steps.
+
+    1. Per 32-lane window, with no k_start: each live lane j links to
+       the lowest live lane i > j of the window with kr[i] - kl[j] > 1
+       (the shuffle search), and five rounds of pointer doubling turn the
+       links into the bit mask of the chain j, link(j), link(link(j)), ...
+    2. One warp walks the windows carrying ks: the lowest live lane with
+       kr - ks > 1 in the window's ballot is its first boundary, that
+       lane's chain mask is the window's boundaries, and ks becomes kl at
+       the mask's highest lane."""
+    M = kl.shape[0]
+    f32 = np.float32
+    out = np.zeros(M, bool)
+    ks = f32(kl[0]) - f32(2.0)
+    for base in range(0, M, 32):
+        n = min(32, M - base)
+        lv = [bool(live[base + j]) for j in range(n)] + [False] * (32 - n)
+        link = [32] * 32
+        for j in range(n):
+            if lv[j]:
+                link[j] = next((i for i in range(j + 1, n) if lv[i]
+                                and f32(kr[base + i]) - f32(kl[base + j])
+                                > f32(1.0)), 32)
+        mask = [(1 << j) if lv[j] else 0 for j in range(32)]
+        p = [link[j] if lv[j] else 32 for j in range(32)]
+        for _ in range(5):                       # all lanes at once
+            mask, p = ([m | mask[q] if q < 32 else m
+                        for m, q in zip(mask, p)],
+                       [p[q] if q < 32 else q for q in p])
+        first = [j for j in range(n)
+                 if lv[j] and f32(kr[base + j]) - ks > f32(1.0)]
+        if first:
+            found = mask[first[0]]
+            for j in range(32):
+                if found >> j & 1:
+                    out[base + j] = True
+            ks = f32(kl[base + found.bit_length() - 1])
+    return out
+
+
+def test_ballot_recurrence_model_matches_the_sequential_one():
+    """The kernel's window chains and ballots give the same boundaries as
+    the sequential recurrence of `_cluster_tail` on rows where the
+    shortcut assumptions would fail: k1 rows of a real sorted buffer,
+    rows whose kr is non-monotone by hand, and rows with dead lanes in
+    the middle."""
+    rng = np.random.default_rng(11)
+    K, M = 12, 300
+    rows_kl, rows_kr, rows_live = [], [], []
+    for r in range(K):
+        w = (np.abs(rng.normal(1, 0.5, M)) + 0.01)
+        if r % 3 == 2:
+            w[rng.random(M) < 0.3] = 0.0       # dead lanes in the middle
+        cum = np.cumsum(w)
+        q = cum / cum[-1]
+        kr = COMP * (np.arcsin(2 * q - 1) + np.pi / 2) / np.pi
+        kl = COMP * (np.arcsin(2 * (cum - w) / cum[-1] - 1) + np.pi / 2) \
+            / np.pi
+        if r % 3 == 1:                          # non-monotone kr
+            kr = kr + rng.normal(0, 3, M)
+            kr[::17] -= 50.0
+        rows_kl.append(kl.astype(np.float32))
+        rows_kr.append(kr.astype(np.float32))
+        rows_live.append(w > 0)
+    kl, kr, live = (np.stack(a) for a in (rows_kl, rows_kr, rows_live))
+    seq = ttd._greedy_boundaries(torch.as_tensor(kl), torch.as_tensor(kr),
+                                 torch.as_tensor(live)).numpy()
+    for r in range(K):
+        np.testing.assert_array_equal(
+            _ballot_boundaries(kl[r], kr[r], live[r]), seq[r],
+            err_msg=f"row {r}")
+    assert seq.sum(1).min() > 10
+
+
 def test_compress_wrapper_on_cpu_runs_plain_and_counts_nothing():
     kernels.reset_launches()
     inputs = _torch(*_mk_inputs(1))

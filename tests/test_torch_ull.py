@@ -101,32 +101,56 @@ def test_relanding_a_batch_changes_nothing():
     np.testing.assert_array_equal(_t_insert(once, slots, idx, vals), once)
 
 
+def _j_insert(regs, slots, idx, vals):
+    return np.asarray(jull._insert_impl(
+        jull.ULLBank(registers=jnp.asarray(regs)), jnp.asarray(slots),
+        jnp.asarray(idx), jnp.asarray(vals)).registers)
+
+
 def test_updates_outside_the_bank_are_dropped():
+    """Padding, a slot past the bank, the index one past the last
+    register and flat keys that wrap past 2^32 name no register."""
     K, m = 4, 64
     regs = np.zeros((K, m), np.uint8)
-    slots = np.array([-1, K, 2, 2, 1], np.int32)
-    idx = np.array([3, 3, m, -1, 5], np.int32)
-    vals = np.full(5, 4 * 9, np.uint8)
+    slots = np.array([-1, -5, K, K - 1, 0, 1, 2], np.int32)
+    idx = np.array([3, 3, 0, m, -1, -2 * m, 5], np.int32)
+    vals = np.full(len(slots), 4 * 9, np.uint8)
     got = _t_insert(regs, slots, idx, vals)
     want = regs.copy()
-    want[1, 5] = 4 * 9
+    want[2, 5] = 4 * 9
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _j_insert(regs, slots, idx, vals))
 
 
-def test_index_past_the_row_is_dropped_where_jax_wraps():
-    """A divergence on input no caller produces (ROADMAP C.3): the JAX
-    insert keys a register by slot * m + idx, so idx == m lands in the
-    next row's register 0; the port (plain version and kernel) drops
-    it."""
+def test_index_past_the_row_lands_in_the_next_row_as_in_jax():
+    """Both packages key a register by the uint32 flat index slot * m +
+    idx, so idx == m lands in the next row's register 0."""
     K, m = 4, 64
     regs = np.zeros((K, m), np.uint8)
     slots, idx = np.array([1], np.int32), np.array([m], np.int32)
     vals = np.array([4 * 9], np.uint8)
-    want = np.asarray(jull._insert_impl(
-        jull.ULLBank(registers=jnp.asarray(regs)), jnp.asarray(slots),
-        jnp.asarray(idx), jnp.asarray(vals)).registers)
+    want = _j_insert(regs, slots, idx, vals)
     assert want[2, 0] == 4 * 9 and want.sum() == 4 * 9
-    np.testing.assert_array_equal(_t_insert(regs, slots, idx, vals), regs)
+    np.testing.assert_array_equal(_t_insert(regs, slots, idx, vals), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_flat_key_edges_match_jax_on_every_byte(seed):
+    """A batch that holds idx == m, idx == -1 (the previous row's last
+    register, or no register from slot 0), the last slot's last register
+    and padding, over a bank of random bytes: the plain insert equals
+    the JAX insert on every byte."""
+    rng = np.random.default_rng(seed)
+    K, m, n = 6, 128, 1024
+    regs, slots, idx, vals = _batch(rng, K, m, n)
+    edges = [(1, m), (K - 2, m), (K - 1, m), (0, -1), (3, -1),
+             (K - 1, m - 1), (K - 1, -1), (-1, m), (2, 2 * m + 3)]
+    for i, (s, c) in enumerate(edges):
+        for rep in range(3):           # each edge three times, 3 values
+            slots[16 * i + rep], idx[16 * i + rep] = s, c
+    got = _t_insert(regs, slots, idx, vals)
+    np.testing.assert_array_equal(got, _j_insert(regs, slots, idx, vals))
+    assert (got != regs).sum() > n // 8
 
 
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing():

@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -87,8 +89,8 @@ extern "C" {
 // cudaGetLastError().
 int vt_hll_stats(const uint8_t* regs, float* ez, float* zsum, int K, int m,
                  int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   hll_stats_kernel<<<K, kThreads, 0, (cudaStream_t)stream>>>(regs, ez,
                                                              zsum, m);
   return (int)cudaGetLastError();

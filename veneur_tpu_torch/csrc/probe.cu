@@ -8,6 +8,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 __global__ void probe_kernel(const float* __restrict__ x,
@@ -23,8 +25,8 @@ extern "C" {
 // One launch over n elements on `stream` of `device`; returns
 // cudaGetLastError().
 int vt_probe(const float* x, float* out, int n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   probe_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(x, out, n);
   return (int)cudaGetLastError();
 }

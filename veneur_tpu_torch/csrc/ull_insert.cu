@@ -4,12 +4,15 @@
 // (body _insert_kernel). For each update i of a batch it joins vals[i]
 // into the register byte registers[slots[i], idx[i]] of a u8[K, m] bank,
 // in place; the join is the ULL lattice join of
-// veneur_tpu/sketches/ull.py:_join_i32. Updates with a slot outside
-// [0, K) (slot -1 is padding) or an index outside [0, m) are skipped, as
-// the plain version drops them.
+// veneur_tpu/sketches/ull.py:_join_i32. As in the JAX insert, an update
+// is keyed by the uint32 flat index (uint32(slot) * m + uint32(idx)) mod
+// 2^32 of the row-major bank and is live iff slot >= 0 and the index is
+// below K*m: slot -1 is padding, and an index outside [0, m) lands in a
+// neighbouring row's register while that is inside the bank. The wrapper
+// refuses a bank of 2^32 registers or more, which that key cannot name.
 //
-// Design: one thread per update in a grid-stride loop. The flat byte
-// address is computed in 64 bits (slot * m passes 2^31 at K*m >= 2^31).
+// Design: one thread per update in a grid-stride loop. The byte address
+// is the flat index, widened to 64 bits for the pointer arithmetic.
 // A byte has no atomic of its own, so the thread runs an atomicCAS loop
 // on the aligned 32-bit word that holds it: take the byte lane, join,
 // stop when the join equals the current byte (the join is idempotent, so
@@ -29,6 +32,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -59,9 +64,10 @@ ull_insert_kernel(uint8_t* __restrict__ regs,
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
     const int s = slots[i];
-    const int c = idx[i];
-    if (s < 0 || s >= K || c < 0 || c >= m) continue;
-    const size_t addr = (size_t)s * (size_t)m + (size_t)c;
+    if (s < 0) continue;
+    const uint32_t flat = (uint32_t)s * (uint32_t)m + (uint32_t)idx[i];
+    if ((uint64_t)flat >= (uint64_t)K * (uint64_t)m) continue;
+    const size_t addr = flat;
     unsigned int* word =
         reinterpret_cast<unsigned int*>(regs + (addr & ~(size_t)3));
     const int shift = (int)(addr & 3) * 8;
@@ -88,8 +94,8 @@ extern "C" {
 int vt_ull_insert(uint8_t* regs, const int32_t* slots, const int32_t* idx,
                   const uint8_t* vals, int n, int K, int m, int device,
                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   int blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;

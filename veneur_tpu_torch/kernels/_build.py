@@ -1,23 +1,28 @@
-"""Build-at-first-use of the CUDA sources and their ctypes binding.
+"""Build-at-first-use of the CUDA sources and their Python binding.
 
-Every `csrc/*.cu` is compiled by its own `nvcc -c`, all started
-together, and one `nvcc -shared` links the objects into one library
-under `veneur_tpu_torch/_build/` (listed in .gitignore). The library's name
-carries a hash of the sources and flags, so an edited source builds
-anew and an unchanged one is reused. The C entry points take plain
-pointers (`c_void_p`, from `tensor.data_ptr()`), `c_int` sizes and the
-CUDA stream (`torch.cuda.current_stream().cuda_stream`), and return
-`cudaGetLastError()` after their launch.
+Every `csrc/*.cu` and the binding `csrc/bindings.cpp` is compiled by its
+own `nvcc -c`, all started together, and one `nvcc -shared` links the
+objects into one library under `veneur_tpu_torch/_build/` (listed in
+.gitignore). The library's name carries a hash of the sources and flags,
+so an edited source builds anew and an unchanged one is reused. It is
+loaded as the CPython extension module `_veneur_kernels` (needs the
+interpreter's C headers, `Python.h`), whose functions are the C entry
+points: they take plain pointers (Python ints, from `tensor.data_ptr()`),
+sizes, the device index and the raw handle of the current CUDA stream;
+each selects that device for its launch (csrc/device_guard.cuh) and
+returns `cudaGetLastError()` after it.
 """
 
 from __future__ import annotations
 
-import ctypes
 import glob
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 import threading
 import time
@@ -25,20 +30,22 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
+BINDINGS = os.path.join(CSRC_DIR, "bindings.cpp")
+MODULE = "_veneur_kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
-              "--ptxas-options=-v")
+              "--ptxas-options=-v", "-I" + sysconfig.get_paths()["include"])
 
-# entry name -> (argtypes, restype)
-_P, _I, _D, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
-    ctypes.c_size_t
+# entry name -> its positional arguments in csrc/bindings.cpp: p a pointer
+# (a Python int), i a C int, d a double
 ENTRIES = {
-    "vt_compress": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P], _I),
-    "vt_compress_smem_bytes": ([_I, _I], _S),
-    "vt_hll_stats": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "vt_ull_insert": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "vt_probe": ([_P, _P, _I, _I, _P], _I),
+    "vt_compress": "ppppppiiidip",
+    "vt_compress_smem_bytes": "ii",
+    "vt_compress_blocks_per_sm": "iii",
+    "vt_hll_stats": "pppiiip",
+    "vt_ull_insert": "ppppiiiip",
+    "vt_probe": "ppiip",
 }
 
 
@@ -47,6 +54,7 @@ class NvccError(RuntimeError):
 
 
 def sources() -> list:
+    """The kernel sources, one a kernel."""
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
@@ -80,7 +88,7 @@ def build() -> tuple:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
         try:
-            for src in sources():
+            for src in sources() + [BINDINGS]:
                 obj = os.path.join(tmp, os.path.basename(src) + ".o")
                 objs.append(obj)
                 procs.append(subprocess.Popen(
@@ -113,16 +121,17 @@ last_build = None
 
 
 def load():
-    """The loaded library with every entry's argtypes/restype declared;
-    builds it on first use."""
+    """The library as an extension module whose functions are the C
+    entries; builds it on first use."""
     global _lib, last_build
     with _lock:
         if _lib is None:
             last_build = build()
-            lib = ctypes.CDLL(last_build[0])
-            for name, (argtypes, restype) in ENTRIES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
+            loader = importlib.machinery.ExtensionFileLoader(
+                MODULE, last_build[0])
+            spec = importlib.util.spec_from_file_location(
+                MODULE, last_build[0], loader=loader)
+            lib = importlib.util.module_from_spec(spec)
+            loader.exec_module(lib)
             _lib = lib
         return _lib

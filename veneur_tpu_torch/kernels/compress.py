@@ -7,9 +7,11 @@ the plain version, `compress_plain` (ops/tdigest.py), re-exported here.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from . import check_launch, launches, require_cuda, stream_handle
+from . import launch_error, launches, lib, require_cuda, stream_handle
 from ..ops.tdigest import compress_plain
 
 __all__ = ["fused_compress", "compress_plain"]
@@ -17,16 +19,34 @@ __all__ = ["fused_compress", "compress_plain"]
 _MAX_SMEM = 227 * 1024
 
 
+@functools.lru_cache(maxsize=None)
+def smem_bytes(C: int, B: int) -> int:
+    """Shared memory one row of C centroids and B buffer lanes needs
+    (asked of the library once per shape)."""
+    return lib().vt_compress_smem_bytes(C, B)
+
+
+def blocks_per_sm(C: int, B: int, device: int) -> int:
+    """Rows the kernel keeps in flight on one SM of card `device` at
+    this shape (the occupancy calculator's answer)."""
+    n = lib().vt_compress_blocks_per_sm(C, B, device)
+    if n < 0:
+        raise launch_error("compress occupancy", -n)
+    return n
+
+
 def fused_compress(mean, weight, buf_value, buf_weight, compression: float):
     """[K, C] centroids + [K, B] buffers -> (new_mean, new_weight) [K, C]:
     the whole compress of every row (sort, rank-merge, k1 clustering,
     ordering clamp)."""
-    if mean.device.type == "cpu":
+    if mean.is_cpu:
         return compress_plain(mean, weight, buf_value, buf_weight,
                               compression)
-    for name, t in (("mean", mean), ("weight", weight),
-                    ("buf_value", buf_value), ("buf_weight", buf_weight)):
-        require_cuda(f"fused_compress {name}", t, torch.float32, 2)
+    dev = require_cuda("fused_compress mean", mean, torch.float32, 2)
+    require_cuda("fused_compress weight", weight, torch.float32, 2, dev)
+    require_cuda("fused_compress buf_value", buf_value, torch.float32, 2, dev)
+    require_cuda("fused_compress buf_weight", buf_weight, torch.float32, 2,
+                 dev)
     K, C = mean.shape
     B = buf_value.shape[1]
     if weight.shape != (K, C) or buf_weight.shape != (K, B) \
@@ -36,12 +56,7 @@ def fused_compress(mean, weight, buf_value, buf_weight, compression: float):
                          f"{tuple(buf_value.shape)} {tuple(buf_weight.shape)}")
     if C < 1 or B < 1 or B > (1 << 16):
         raise ValueError(f"fused_compress: unsupported C={C} B={B}")
-    devs = {t.device for t in (mean, weight, buf_value, buf_weight)}
-    if len(devs) != 1:
-        raise ValueError(f"fused_compress: tensors on {devs}")
-    from ._build import load
-    lib = load()
-    smem = lib.vt_compress_smem_bytes(C, B)
+    smem = smem_bytes(C, B)
     if smem > _MAX_SMEM:
         raise ValueError(f"fused_compress: C={C} B={B} needs {smem} B of "
                          f"shared memory, over {_MAX_SMEM}")
@@ -49,12 +64,11 @@ def fused_compress(mean, weight, buf_value, buf_weight, compression: float):
     out_weight = torch.empty_like(mean)
     if K == 0:
         return out_mean, out_weight
-    with torch.cuda.device(mean.device):
-        err = lib.vt_compress(
-            mean.data_ptr(), weight.data_ptr(), buf_value.data_ptr(),
-            buf_weight.data_ptr(), out_mean.data_ptr(),
-            out_weight.data_ptr(), K, C, B, float(compression),
-            mean.device.index, stream_handle(mean.device))
-    check_launch(err, "fused_compress")
+    err = lib().vt_compress(
+        mean.data_ptr(), weight.data_ptr(), buf_value.data_ptr(),
+        buf_weight.data_ptr(), out_mean.data_ptr(), out_weight.data_ptr(),
+        K, C, B, float(compression), dev, stream_handle(dev))
+    if err:
+        raise launch_error("fused_compress", err)
     launches["compress"] += 1
     return out_mean, out_weight

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from . import check_launch, launches, require_cuda, stream_handle
+from . import launch_error, launches, lib, require_cuda, stream_handle
 
 
 def hll_stats_plain(registers):
@@ -22,22 +22,19 @@ def hll_stats_plain(registers):
 
 def hll_stats(registers):
     """(ez[K], zsum[K]) for a u8[K, m] register bank."""
-    if registers.device.type == "cpu":
+    if registers.is_cpu:
         return hll_stats_plain(registers)
-    require_cuda("hll_stats registers", registers, torch.uint8, 2)
+    dev = require_cuda("hll_stats registers", registers, torch.uint8, 2)
     K, m = registers.shape
     if m < 1:
         raise ValueError("hll_stats: register width must be >= 1")
-    ez = torch.empty(K, dtype=torch.float32, device=registers.device)
-    zsum = torch.empty(K, dtype=torch.float32, device=registers.device)
+    ez = registers.new_empty(K, dtype=torch.float32)
+    zsum = registers.new_empty(K, dtype=torch.float32)
     if K == 0:
         return ez, zsum
-    from ._build import load
-    lib = load()
-    with torch.cuda.device(registers.device):
-        err = lib.vt_hll_stats(registers.data_ptr(), ez.data_ptr(),
-                               zsum.data_ptr(), K, m, registers.device.index,
-                               stream_handle(registers.device))
-    check_launch(err, "hll_stats")
+    err = lib().vt_hll_stats(registers.data_ptr(), ez.data_ptr(),
+                             zsum.data_ptr(), K, m, dev, stream_handle(dev))
+    if err:
+        raise launch_error("hll_stats", err)
     launches["hll_stats"] += 1
     return ez, zsum

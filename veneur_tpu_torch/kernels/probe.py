@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from . import check_launch, launches, require_cuda, stream_handle
+from . import launch_error, launches, lib, require_cuda, stream_handle
 
 SHAPE = (8, 128)
 
@@ -21,18 +21,22 @@ def probe_plain(x):
 
 def probe_add(x):
     """x + 1 for an f32 tensor."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return probe_plain(x)
-    require_cuda("probe x", x, torch.float32, 2)
-    if x.numel() == 0:
+    # the checks of require_cuda inline (this call is all host time);
+    # require_cuda names the one that failed
+    if not (x.is_cuda and x.dtype is torch.float32 and x.dim() == 2
+            and x.is_contiguous()):
+        require_cuda("probe x", x, torch.float32, 2)
+    n = x.numel()
+    if n == 0:
         raise ValueError("probe: empty tensor")
+    dev = x.get_device()
     out = torch.empty_like(x)
-    from ._build import load
-    lib = load()
-    with torch.cuda.device(x.device):
-        err = lib.vt_probe(x.data_ptr(), out.data_ptr(), x.numel(),
-                           x.device.index, stream_handle(x.device))
-    check_launch(err, "probe")
+    err = lib().vt_probe(x.data_ptr(), out.data_ptr(), n, dev,
+                         stream_handle(dev))
+    if err:
+        raise launch_error("probe", err)
     launches["probe"] += 1
     return out
 

@@ -10,43 +10,40 @@ from __future__ import annotations
 
 import torch
 
-from . import check_launch, launches, require_cuda, stream_handle
-from ..sketches.ull import _insert_impl
+from . import launch_error, launches, lib, require_cuda, stream_handle
+from ..sketches.ull import _insert_impl, check_flat_range
 
 
 def fused_insert(bank, slots, reg_idx, vals):
-    """Join vals u8[n] into bank.registers[slots[i], reg_idx[i]] in place
-    (slots/reg_idx i32[n]); updates outside the bank are dropped. Returns
-    the bank."""
+    """Join vals u8[n] into bank.registers in place at the uint32 flat
+    index slots[i] * m + reg_idx[i] (slots/reg_idx i32[n]), the key of
+    `_insert_impl`; padding (slot < 0) and indices past the bank are
+    dropped. Returns the bank."""
     regs = bank.registers
-    if regs.device.type == "cpu":
+    if regs.is_cpu:
         return _insert_impl(bank, slots, reg_idx, vals)
-    require_cuda("fused_insert registers", regs, torch.uint8, 2)
-    require_cuda("fused_insert slots", slots, torch.int32, 1)
-    require_cuda("fused_insert reg_idx", reg_idx, torch.int32, 1)
-    require_cuda("fused_insert vals", vals, torch.uint8, 1)
+    dev = require_cuda("fused_insert registers", regs, torch.uint8, 2)
+    require_cuda("fused_insert slots", slots, torch.int32, 1, dev)
+    require_cuda("fused_insert reg_idx", reg_idx, torch.int32, 1, dev)
+    require_cuda("fused_insert vals", vals, torch.uint8, 1, dev)
     K, m = regs.shape
     n = slots.shape[0]
     if reg_idx.shape[0] != n or vals.shape[0] != n:
         raise ValueError(f"fused_insert: batch lengths disagree {n} "
                          f"{reg_idx.shape[0]} {vals.shape[0]}")
-    devs = {t.device for t in (regs, slots, reg_idx, vals)}
-    if len(devs) != 1:
-        raise ValueError(f"fused_insert: tensors on {devs}")
+    check_flat_range(K, m)
     # the kernel CASes the aligned 32-bit word holding each byte: it must
     # lie inside the register row and inside the allocation
-    if regs.data_ptr() % 4 or m % 4:
+    base = regs.data_ptr()
+    if base % 4 or m % 4:
         raise ValueError("fused_insert: registers must be 4-byte aligned "
                          f"with a row width divisible by 4 (m={m})")
     if n == 0 or K == 0:
         return bank
-    from ._build import load
-    lib = load()
-    with torch.cuda.device(regs.device):
-        err = lib.vt_ull_insert(regs.data_ptr(), slots.data_ptr(),
-                                reg_idx.data_ptr(), vals.data_ptr(), n, K,
-                                m, regs.device.index,
-                                stream_handle(regs.device))
-    check_launch(err, "fused_insert")
+    err = lib().vt_ull_insert(base, slots.data_ptr(), reg_idx.data_ptr(),
+                              vals.data_ptr(), n, K, m, dev,
+                              stream_handle(dev))
+    if err:
+        raise launch_error("fused_insert", err)
     launches["ull_insert"] += 1
     return bank

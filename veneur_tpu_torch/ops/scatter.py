@@ -59,21 +59,33 @@ def run_lasts(sorted_slots):
     return last
 
 
-def drop_index(slots, num_slots: int, mask=None):
-    """Map padding, out-of-range ids and (optionally) masked-off samples
-    to the sentinel row `num_slots` — the `mode="drop"` of the JAX
-    scatters: callers scatter into a [num_slots + 1] scratch and slice
-    the sentinel row off."""
-    bad = (slots < 0) | (slots >= num_slots)
+def drop_index(slots, num_slots: int, mask=None, *, wrap=False):
+    """Row of each sample in a [num_slots + 1] scratch whose last row,
+    the sentinel `num_slots`, callers slice off: the `mode="drop"` of
+    the JAX scatters. Masked-off samples and ids outside [0, num_slots)
+    go to the sentinel.
+
+    `wrap=True` is the rule of a JAX helper that hands its ids to `.at[]`
+    as they are (`segment_count`): `.at[]` first wraps a negative id in
+    [-num_slots, -1] onto id + num_slots, as numpy indexing does, and
+    drops only what is still outside. The default is the rule of the JAX
+    helpers that map padding to the sentinel themselves
+    (`where(slots >= 0, slots, K)`), where a negative id never reaches
+    the scatter."""
+    K = num_slots
+    if wrap:
+        slots = torch.where((slots < 0) & (slots >= -K), slots + K, slots)
+    bad = (slots < 0) | (slots >= K)
     if mask is not None:
         bad = bad | ~mask
-    return torch.where(bad, torch.full_like(slots, num_slots), slots).long()
+    return torch.where(bad, torch.full_like(slots, K), slots).long()
 
 
 def segment_count(slots, mask, num_slots: int):
     """Count of True-mask samples per slot (int32), dropping out-of-range
-    ids. Integer adds, so the result does not depend on their order."""
-    idx = drop_index(slots, num_slots, mask)
+    ids; a negative id the mask admits wraps as in the JAX helper. Integer
+    adds, so the result does not depend on their order."""
+    idx = drop_index(slots, num_slots, mask, wrap=True)
     out = torch.zeros(num_slots + 1, dtype=torch.int32, device=slots.device)
     out.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
     return out[:num_slots]

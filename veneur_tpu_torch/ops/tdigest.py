@@ -26,9 +26,9 @@ The compress is one function with two implementations: the CUDA kernel
 plain torch version here (`compress_plain`, built from
 `_canonical_sort_key`, `_stable_sort_perm`, `_merge_sorted_runs` and
 `_cluster_core`/`_cluster_tail`) for tensors on the CPU. Both accumulate
-the cumulative weights and weighted values in float64 in lane order and
-evaluate k1 in float64 before rounding to f32, so they agree without a
-summation-order gap.
+the cumulative weights and weighted values in float64 in the blocked
+order of `_blocked_cumsum` and evaluate k1 in float64 before rounding to
+f32, so they agree without a summation-order gap.
 
 In-place updates: `add_batch_impl` and `merge_centroids` write the sample
 buffers (`buf_value`, `buf_weight`) of the bank they are given in place
@@ -202,27 +202,83 @@ def _cluster_core(vals, wts, compression: float, C: int, sorted_prefix: int):
     return _cluster_tail(vals, wts, compression, C)
 
 
+# lanes per chunk of the blocked float64 sums (csrc/compress.cu kSumChunk)
+SUM_CHUNK = 16
+
+
+def _blocked_cumsum(x):
+    """Inclusive float64 prefix sums along the last axis of `x` [..., M],
+    in the blocked order the compress kernel computes them in parallel:
+
+      1. the lanes are cut into L = ceil(M / SUM_CHUNK) chunks of
+         SUM_CHUNK consecutive lanes (the last one ragged), and each chunk
+         is summed sequentially from 0.0: local[i] = local[i-1] + x[i];
+      2. the chunk totals (local at each chunk's last lane) are scanned
+         sequentially: off[0] = 0.0, off[j+1] = off[j] + total[j];
+      3. cum[i] = off[j] + local[i] for lane i of chunk j.
+
+    For non-negative terms cum is non-decreasing, and cum at the last
+    lane of chunk j equals off[j+1] exactly. Each step is one IEEE
+    addition of the same two operands in both implementations, so they
+    agree bit for bit; here each step runs over all rows at once."""
+    M = x.shape[-1]
+    L = -(-M // SUM_CHUNK)
+    pad = L * SUM_CHUNK - M
+    if pad:
+        # the ragged chunk's padding lanes come after its real ones, so
+        # they change no real lane's sum; off[L] is never used
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+    chunks = x.reshape(x.shape[:-1] + (L, SUM_CHUNK))
+    local = torch.empty_like(chunks)
+    run = torch.zeros_like(chunks[..., 0])
+    for i in range(SUM_CHUNK):
+        run = run + chunks[..., i]
+        local[..., i] = run
+    offs = torch.empty_like(local[..., 0])
+    off = torch.zeros_like(offs[..., 0])
+    for j in range(L):
+        offs[..., j] = off
+        off = off + local[..., j, SUM_CHUNK - 1]
+    cum = offs[..., None] + local
+    return cum.reshape(x.shape)[..., :M]
+
+
+def _greedy_boundaries(k_left, k_right, live):
+    """The greedy k1 recurrence over [K, M] f32 rows: lane j opens a new
+    cluster iff it is live and k_right[j] - k_start > 1, and then
+    k_start = k_left[j]; k_start begins at k_left[:, 0] - 2. Sequential
+    in the lanes (compared in f32, like the JAX package). Returns the
+    bool [K, M] boundary flags. The compress kernel evaluates the same
+    recurrence a window of 32 lanes at a time: the chain of boundaries
+    that follows each lane of a window is found first, without k_start,
+    and one warp ballot a window then picks the chain that k_start
+    enters."""
+    K, M = k_left.shape
+    is_new = torch.empty(K, M, dtype=torch.bool, device=k_left.device)
+    k_start = k_left[:, 0] - 2.0
+    for j in range(M):
+        new = (k_right[:, j] - k_start > 1.0) & live[:, j]
+        k_start = torch.where(new, k_left[:, j], k_start)
+        is_new[:, j] = new
+    return is_new
+
+
 def _cluster_tail(vals, wts, compression: float, C: int):
     """The numeric tail on SORTED rows (empties +inf-keyed, weight 0):
     cumulative sums, k1, the greedy boundary recurrence, cluster ids,
     cumsum-diff segment sums, means and the ordering clamp.
 
-    The cumulative weight and weighted value run in float64, column by
-    column in lane order — the order the CUDA kernel's single thread
-    walks — so both implementations produce the same float64 sums.
-    `total` is the last cumulative weight. k1 is evaluated in float64
-    and rounded to f32; the greedy recurrence then compares in f32 like
-    the JAX package."""
+    The cumulative weight and weighted value run in float64 in the
+    blocked order of `_blocked_cumsum`, which the CUDA kernel follows,
+    so both implementations produce the same float64 sums. `total` is
+    the last cumulative weight. k1 is evaluated in float64 and rounded
+    to f32; the greedy recurrence then compares in f32 like the JAX
+    package."""
     K, M = vals.shape
     dev = vals.device
     w64 = wts.double()
     wv64 = w64 * torch.where(wts > 0, vals, 0.0).double()
-    both = torch.stack([w64, wv64], dim=1)              # [K, 2, M]
-    cums = torch.empty_like(both)
-    run = torch.zeros(K, 2, dtype=torch.float64, device=dev)
-    for j in range(M):
-        run = run + both[:, :, j]
-        cums[:, :, j] = run
+    cums = _blocked_cumsum(torch.stack([w64, wv64], dim=1))  # [K, 2, M]
     cum, cwv = cums[:, 0], cums[:, 1]
 
     total = cum[:, -1:]
@@ -230,14 +286,8 @@ def _cluster_tail(vals, wts, compression: float, C: int):
     k_right = _k1(cum / safe_total, compression).float()
     k_left = _k1((cum - w64) / safe_total, compression).float()
 
-    is_new = torch.empty(K, M, dtype=torch.bool, device=dev)
-    k_start = k_left[:, 0] - 2.0
     live = wts > 0
-    for j in range(M):
-        new = (k_right[:, j] - k_start > 1.0) & live[:, j]
-        k_start = torch.where(new, k_left[:, j], k_start)
-        is_new[:, j] = new
-
+    is_new = _greedy_boundaries(k_left, k_right, live)
     cluster = torch.cumsum(is_new.int(), dim=1) - 1
     cluster = torch.where(live, cluster, C - 1).clamp(0, C - 1)
     targets = torch.arange(C, dtype=cluster.dtype, device=dev).expand(K, C)

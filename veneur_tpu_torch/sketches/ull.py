@@ -91,21 +91,37 @@ def join_registers_np(a, b) -> np.ndarray:
     return np.where(qm > 0, out, 0).astype(np.uint8)
 
 
+def check_flat_range(K: int, m: int) -> None:
+    """Refuse a [K, m] bank whose registers a uint32 flat index cannot
+    all name (the JAX insert's key; its bound K*m is a uint32 too)."""
+    if K * m >= 1 << 32:
+        raise ValueError(f"ULL bank of {K} x {m} registers: the insert's "
+                         "uint32 flat index covers fewer than 2^32")
+
+
 def _insert_impl(bank: ULLBank, slots, reg_idx, vals) -> ULLBank:
     """The plain version of the insert kernel: join `vals` (packed 4*q
-    register values) into registers[slot, reg_idx], in place. Updates
-    with a slot outside [0, K) (slot -1 is padding) or an index outside
-    [0, m) are dropped. Flat addresses are int64, so K*m may pass 2^31."""
+    register values) into registers[slot, reg_idx], in place.
+
+    Each update is keyed, as in the JAX insert, by the uint32 flat index
+    flat = (uint32(slot) * m + uint32(reg_idx)) mod 2^32 of the row-major
+    bank, and is live iff slot >= 0 and flat < K*m: slot -1 is padding,
+    and an index outside [0, m) lands in a neighbouring row's register
+    when that is still inside the bank. A bank of more than 2^32
+    registers has no uint32 key and is refused."""
     K, m = bank.registers.shape
-    valid = (slots >= 0) & (slots < K) & (reg_idx >= 0) & (reg_idx < m)
-    tgt = slots[valid].long() * m + reg_idx[valid].long()
+    check_flat_range(K, m)
+    u32 = 0xFFFFFFFF
+    flat = ((slots.long() & u32) * m + (reg_idx.long() & u32)) & u32
+    valid = (slots >= 0) & (flat < K * m)
+    tgt = flat[valid]
     if tgt.numel() == 0:
         return bank
-    flat = bank.registers.view(-1)
+    regs = bank.registers.view(-1)
     uniq, inv = torch.unique(tgt, return_inverse=True)
     U = uniq.numel()
     # the operands of each target: its current byte, then every update
-    x = torch.cat([flat[uniq].long(), vals[valid].long()])
+    x = torch.cat([regs[uniq].long(), vals[valid].long()])
     seg = torch.cat([torch.arange(U, device=tgt.device), inv])
     q = x >> 2
     qm = torch.zeros(U, dtype=torch.int64, device=tgt.device)
@@ -117,7 +133,7 @@ def _insert_impl(bank: ULLBank, slots, reg_idx, vals) -> ULLBank:
         0, seg, _proves(x, q, qs - 2).long(), reduce="amax")
     out = torch.where(qm > 0, (qm << 2) | (b1 << 1) | b2,
                       torch.zeros_like(qm))
-    flat[uniq] = out.to(torch.uint8)
+    regs[uniq] = out.to(torch.uint8)
     return bank
 
 
