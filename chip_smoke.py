@@ -25,13 +25,17 @@ the run:
                C=64 cluster-overflow clip at a small shape.
   3. hll_stats the HLL estimate reduction against its plain version at
                [4096, 16384] u8 registers and at a ragged [37, 1000].
-  4. ull_insert the ULL scatter-join insert against its plain version at
-               the serving shape [4096, 8192] with a batch of 8192:
-               random canonical and non-canonical bytes, 25% duplicated
-               targets with conflicting values, padding, the last slot
-               and register, one register hit 1000 times and the four
-               registers of one word hit together; every byte equal,
-               and re-landing the batch changes nothing.
+  4. ull_insert the ULL scatter-join insert against its plain version on
+               a [4096, 8192] bank, each case every byte equal and
+               re-landing its batch changing nothing: the serving batch
+               of 8192 (random canonical and non-canonical bytes, 25%
+               duplicated targets with conflicting values, padding, the
+               last slot and register, one register hit 1000 times, the
+               four registers of one word hit together, the uint32 key
+               edges), the engine's landing size (131072 updates of the
+               same kinds), 8192 and 131072 updates on the four bytes of
+               one word, the key edges alone, and the serving batch
+               through views at an offset.
   5. main path, twice, through AggregationEngine on the card: the default
                EngineConfig() (t-digest + HLL), then
                histogram_backend="req", set_backend="ull". Each: DogStatsD
@@ -44,15 +48,25 @@ the run:
                just before each path and read just after it: each path
                must launch its own kernels (default: compress, hll_stats;
                req+ull: ull_insert; both: the probe, at engine
-               construction) and none of the other path's. Then a second
-               engine with the incremental flush off (not counted) is fed
-               the same data and must flush bit-identical rows.
+               construction) and none of the other path's. Set ingest is
+               timed (the bulk set loop of interval A, ended by landing
+               the landing buffer's remainder and a synchronize:
+               updates/s) and its ull_insert launches are
+               held to one per landing buffer of updates plus one a
+               flush. Then a second engine with the incremental flush off
+               (not counted) is fed the same data and must flush
+               bit-identical rows.
   6. timing    median kernel and plain-version times at the serving
                shapes, each kernel's device time from torch.profiler and
                its host share (time a call - device time), against each
-               kernel's bound, and the flush times. The probe and
+               kernel's bound, and the flush times; ull_insert at the
+               serving batch, at the landing size and on 131072 updates
+               on one word. The probe and
                torch.add(x, 1.0) are timed in turns, call against call
-               and device against device.
+               and device against device, and so are the two set landing
+               routes on interval A's 1M updates: one insert per batch
+               of 8192 (the route before the landing buffer) against the
+               engine's landing buffer.
 
 Then it prints one JSON line describing every kernel, the card's name
 and power limit as nvidia-smi reports them, and, last, the device line
@@ -457,14 +471,45 @@ def ull_insert_inputs(device, K, m, n, seed=3):
     return t(regs), t(slots), t(idx), t(vals), hot
 
 
-def phase_ull_insert(device, K=SERVE_SETS, m=SERVE_ULL_M, n=SERVE_BATCH):
-    """Kernel vs plain. Tolerance: none — every register byte equal. The
-    hot register is also checked against a numpy fold of the join over
-    its operands, and re-landing the batch must change nothing."""
+def one_word_inputs(device, K, m, n, seed=5):
+    """n updates with conflicting values on the four registers of one
+    word of a random [K, m] bank."""
     import torch
+    rng = np.random.default_rng(seed)
+    regs = rng.integers(0, 256, (K, m), dtype=np.uint8)
+    slots = np.full(n, K // 2, np.int32)
+    idx = (40 + np.arange(n) % 4).astype(np.int32)
+    vals = rng.integers(0, 256, n, dtype=np.uint8)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (regs, slots, idx, vals))
+
+
+def key_edge_inputs(device, K, m, reps=64, seed=6):
+    """The uint32 key edges of `ull_insert_inputs`, each `reps` times
+    with conflicting values, on a random [K, m] bank."""
+    import torch
+    rng = np.random.default_rng(seed)
+    regs = rng.integers(0, 256, (K, m), dtype=np.uint8)
+    slots = np.repeat(np.array([K, 1, 0, 1], np.int32), reps)
+    idx = np.repeat(np.array([0, -2 * m, m, -1], np.int32), reps)
+    vals = rng.integers(0, 256, len(slots), dtype=np.uint8)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (regs, slots, idx, vals))
+
+
+def landing_size(batch=SERVE_BATCH):
+    """The engine's set landing buffer, in updates, at `batch`."""
+    from veneur_tpu_torch.models.pipeline import SET_LANDING_BATCHES
+    return SET_LANDING_BATCHES * batch
+
+
+def check_insert_case(label, device, regs, slots, idx, vals, hot=None):
+    """One batch through the kernel and the plain version on copies of
+    `regs`: every byte equal; the hot register, if named, equal to a
+    numpy fold of the join over its operands; re-landing the batch
+    changes nothing."""
     from veneur_tpu_torch.kernels import ull_insert as ki
     from veneur_tpu_torch.sketches import ull
-    regs, slots, idx, vals, hot = ull_insert_inputs(device, K, m, n)
     kb = ull.ULLBank(registers=regs.clone())
     pb = ull.ULLBank(registers=regs.clone())
     ki.fused_insert(kb, slots, idx, vals)
@@ -473,25 +518,59 @@ def phase_ull_insert(device, K=SERVE_SETS, m=SERVE_ULL_M, n=SERVE_BATCH):
     diff = int((kb.registers != pb.registers).sum())
     err = int((kb.registers.int() - pb.registers.int()).abs().max())
     changed = int((kb.registers != regs).sum())
-    s_np, i_np, v_np = (a.cpu().numpy() for a in (slots, idx, vals))
-    want = regs[hot].item()
-    for v in v_np[(s_np == hot[0]) & (i_np == hot[1])]:
-        want = int(ull.join_registers_np(want, v))
     before = kb.registers.clone()
     ki.fused_insert(kb, slots, idx, vals)
     sync(device)
-    rec = {"K": K, "m": m, "n": n, "bytes_differing": diff,
-           "bytes_changed_by_the_batch": changed,
-           "hot_register": [kb.registers[hot].item(), want],
+    rec = {"K": regs.shape[0], "m": regs.shape[1], "n": slots.shape[0],
+           "bytes_differing": diff, "bytes_changed_by_the_batch": changed,
            "relanding_changes": int((kb.registers != before).sum()),
            "max_abs_err": err}
-    print(f"ull_insert serving: {json.dumps(rec)}")
-    check(diff == 0, f"{diff} register bytes differ from the plain version")
-    check(changed >= n // 8, f"the batch changed only {changed} bytes")
-    check(kb.registers[hot].item() == want,
-          "hot register differs from the numpy fold of the join")
-    check(rec["relanding_changes"] == 0, "re-landing the batch changed bytes")
+    if hot is not None:
+        s_np, i_np, v_np = (a.cpu().numpy() for a in (slots, idx, vals))
+        want = regs[hot].item()
+        for v in v_np[(s_np == hot[0]) & (i_np == hot[1])]:
+            want = int(ull.join_registers_np(want, v))
+        rec["hot_register"] = [kb.registers[hot].item(), want]
+    print(f"ull_insert {label}: {json.dumps(rec)}")
+    check(diff == 0, f"{label}: {diff} register bytes differ from the "
+          "plain version")
+    check(changed > 0, f"{label}: the batch changed no byte")
+    check(rec["relanding_changes"] == 0,
+          f"{label}: re-landing the batch changed bytes")
+    if hot is not None:
+        check(rec["hot_register"][0] == rec["hot_register"][1],
+              f"{label}: hot register differs from the numpy fold of the "
+              "join")
     return rec
+
+
+def phase_ull_insert(device, K=SERVE_SETS, m=SERVE_ULL_M, n=SERVE_BATCH,
+                     n_landing=None):
+    """Kernel vs plain. Tolerance: none — every register byte equal, in
+    every case (see the module docstring). `n_landing` defaults to the
+    engine's landing buffer at the serving batch."""
+    n_landing = n_landing or landing_size()
+    out = {}
+    regs, slots, idx, vals, hot = ull_insert_inputs(device, K, m, n)
+    out["serving"] = check_insert_case("serving", device, regs, slots, idx,
+                                       vals, hot)
+    check(out["serving"]["bytes_changed_by_the_batch"] >= n // 8,
+          "serving: the batch changed too few bytes")
+    out["offset_views"] = check_insert_case(
+        "offset views", device, regs, slots[1:], idx[1:], vals[1:], hot)
+    regs, slots, idx, vals, hot = ull_insert_inputs(device, K, m, n_landing,
+                                                    seed=4)
+    out["landing"] = check_insert_case("landing", device, regs, slots, idx,
+                                       vals, hot)
+    out["one_word"] = check_insert_case(
+        "one word", device, *one_word_inputs(device, K, m, n))
+    out["one_word_landing"] = check_insert_case(
+        "one word, landing size", device,
+        *one_word_inputs(device, K, m, n_landing))
+    out["key_edges"] = check_insert_case(
+        "key edges", device, *key_edge_inputs(device, K, m))
+    out["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
+    return out
 
 
 # ------------------------------------------------------------- phase 5
@@ -584,10 +663,16 @@ def build_interval(rng, spec, tag):
 
 def feed(eng, d, truth=None):
     """Drive one interval's data through the engine's user entry
-    points."""
+    points. Returns the set ingest's numbers: the bulk set updates, the
+    wall time of their loop, ended by landing the landing buffer's
+    remainder and a synchronize, so that every bulk update counted has
+    landed, and the updates that reached the set engine in the interval
+    (datagram sets included)."""
     from veneur_tpu_torch.ingest.parser import (
         ServiceCheck, UDPMetric, parse_packet)
     b = eng.cfg.batch_size
+    out = {"set_updates": 0, "set_ingest_ms": 0.0,
+           "set_updates_fed": sum(ln.endswith(b"|s") for ln in d["lines"])}
     for ln in d["lines"]:
         m = parse_packet(ln)
         if isinstance(m, ServiceCheck):
@@ -636,10 +721,18 @@ def feed(eng, d, truth=None):
         names = [f"bulk.s.{i}" for i in range(len(h))]
         slots = np.repeat(_intern(eng.set_keys, names, "set"), h.shape[1])
         idx, rho = eng._seng.host_hash_to_updates(h.reshape(-1))
+        t0 = time.perf_counter()
         for i in range(0, len(slots), b):
             s = slots[i:i + b]
             eng.ingest_set_batch(s, idx[i:i + b], rho[i:i + b],
                                  count=len(s))
+        with eng.lock:   # land the buffer's remainder inside the window
+            eng.set_bank = eng._land_set_buffer(eng.set_bank,
+                                                eng._set_landing)
+        sync(eng.device)
+        out["set_ingest_ms"] = (time.perf_counter() - t0) * 1e3
+        out["set_updates"] = len(slots)
+        out["set_updates_fed"] += len(slots)
         if truth is not None:
             for i, n in enumerate(names):
                 truth.sets[(n, ())] = len(np.unique(h[i]))
@@ -650,6 +743,7 @@ def feed(eng, d, truth=None):
                                np.ones(len(v), np.float32), count=len(v))
         if truth is not None:
             truth.histo[("hot.lat", ())] = v
+    return out
 
 
 def rows_of(res):
@@ -828,9 +922,16 @@ def phase_main(device, path="default", cfg_kw=None, plan=None):
     flushed = {}
     kernels.reset_launches()
     eng = AggregationEngine(EngineConfig(**cfg_kw), device=device)
+    capacity = eng._set_landing.capacity
     for i, (label, d) in enumerate(data.items()):
         truth = Truth()
-        feed(eng, d, truth)
+        n_before = kernels.launches["ull_insert"]
+        sets = feed(eng, d, truth)
+        sets["set_ingest_launches"] = kernels.launches["ull_insert"] \
+            - n_before
+        if sets["set_updates"]:
+            sets["set_updates_per_s"] = \
+                sets["set_updates"] / sets["set_ingest_ms"] * 1e3
         before = dict(kernels.launches)
         with GcPauses() as gcp:
             t0 = time.monotonic()
@@ -856,7 +957,7 @@ def phase_main(device, path="default", cfg_kw=None, plan=None):
             "gc_ms": gcp.ms,
             "rows": len(res.frame),
             "dirty": res.stats["flush_path"].get("dirty"),
-            "flush_launches": flush_launches, **worst}
+            "flush_launches": flush_launches, **sets, **worst}
     out["launches"] = dict(kernels.launches)
     print(f"main-path launches ({path}): {out['launches']}")
     if device.type == "cuda":
@@ -866,6 +967,22 @@ def phase_main(device, path="default", cfg_kw=None, plan=None):
         for name in spec["not_launched"]:
             check(out["launches"][name] == 0,
                   f"kernel {name} was launched on the {path} path")
+    if "ull_insert" in spec["launched"]:
+        # one insert per landing buffer of updates at ingest, and at
+        # most one in each flush
+        most = 0
+        for label, rec in out["intervals"].items():
+            fed = -(-rec["set_updates_fed"] // capacity)
+            check(rec["set_ingest_launches"] <= fed,
+                  f"{label}: {rec['set_ingest_launches']} ull_insert "
+                  f"launches at ingest for {rec['set_updates_fed']} updates")
+            check(rec["flush_launches"]["ull_insert"] <= 1,
+                  f"{label}: {rec['flush_launches']['ull_insert']} "
+                  "ull_insert launches in the flush")
+            most += fed + 1
+        check(out["launches"]["ull_insert"] <= most,
+              f"{out['launches']['ull_insert']} ull_insert launches on the "
+              f"{path} path, more than {most}")
     del eng
 
     ref = AggregationEngine(EngineConfig(flush_incremental=False,
@@ -1031,13 +1148,105 @@ def probe_bound_ms(n):
         "bytes" if bytes_s >= ops_s else "operations", nbytes, ops
 
 
+def land_old_route(eng, slots, idx, rho):
+    """Set updates landed as the engine landed them before its landing
+    buffer: per batch of batch_size, under the lock, mark the dirty rows,
+    copy the three arrays to the card and run one insert."""
+    b = eng.cfg.batch_size
+    for i in range(0, len(slots), b):
+        s = slots[i:i + b]
+        with eng.lock:
+            eng.samples_processed += len(s)
+            eng._mark_dirty_into(eng._dirty, 3, s)
+            eng.set_bank = eng._insert_sets(eng.set_bank, s, idx[i:i + b],
+                                            rho[i:i + b])
+    sync(eng.device)
+
+
+def land_new_route(eng, slots, idx, rho):
+    """The same updates through the engine's entry point and landing
+    buffer, then drain_all (which lands the buffer's remainder). Returns
+    the milliseconds of the ingest loop alone."""
+    b = eng.cfg.batch_size
+    t0 = time.perf_counter()
+    for i in range(0, len(slots), b):
+        s = slots[i:i + b]
+        eng.ingest_set_batch(s, idx[i:i + b], rho[i:i + b], count=len(s))
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    eng.drain_all()
+    sync(eng.device)
+    return loop_ms
+
+
+def time_set_routes(device, cfg_kw, sets, members, rounds):
+    """Interval A's bulk set updates (`sets` x `members`) landed by the
+    old route and the new one, in turns (old, new, new, old) on one
+    engine, each landing into a fresh set bank: the median wall ms of
+    each route, ended by a synchronize, its updates/s and its ull_insert
+    launches; then the median host microseconds of one batch of the new
+    route's loop by step (the dirty marks, the append)."""
+    from veneur_tpu_torch import kernels
+    from veneur_tpu_torch.models.pipeline import (
+        AggregationEngine, EngineConfig, _SetLanding)
+    rng = np.random.default_rng(8)
+    eng = AggregationEngine(EngineConfig(**cfg_kw), device=device)
+    h = rng.integers(0, 2 ** 64, (sets, members), dtype=np.uint64)
+    slots = np.repeat(_intern(eng.set_keys,
+                              [f"bulk.s.{i}" for i in range(sets)], "set"),
+                      members)
+    idx, rho = eng._seng.host_hash_to_updates(h.reshape(-1))
+    times = {"old": [], "new": [], "new_loop": []}
+    launches = {}
+    for r in range(2 * rounds):
+        for route in (("old", "new") if r % 2 == 0 else ("new", "old")):
+            eng.set_bank = eng._seng.init(eng.cfg.set_slots, device)
+            sync(device)
+            n0 = kernels.launches["ull_insert"]
+            t0 = time.perf_counter()
+            if route == "old":
+                land_old_route(eng, slots, idx, rho)
+            else:
+                times["new_loop"].append(
+                    land_new_route(eng, slots, idx, rho))
+            times[route].append((time.perf_counter() - t0) * 1e3)
+            launches[route] = kernels.launches["ull_insert"] - n0
+    out = {"updates": len(slots), "batch": eng.cfg.batch_size,
+           "capacity": eng._set_landing.capacity}
+    for route in ("old", "new"):
+        ms = statistics.median(times[route])
+        out[route] = {"ms": ms, "updates_per_s": len(slots) / ms * 1e3,
+                      "launches": launches[route]}
+    out["new"]["loop_ms"] = statistics.median(times["new_loop"])
+    # the host's share of one batch of the new route's loop, by step
+    buf = _SetLanding(out["capacity"])
+    mark, append = [], []
+    for i in range(0, len(slots), eng.cfg.batch_size):
+        part = [a[i:i + eng.cfg.batch_size] for a in (slots, idx, rho)]
+        t0 = time.perf_counter()
+        eng._mark_dirty_into(eng._dirty, 3, part[0])
+        t1 = time.perf_counter()
+        if not buf.fits(len(part[0])):
+            buf.take()
+        buf.append(*part)
+        mark.append((t1 - t0) * 1e6)
+        append.append((time.perf_counter() - t1) * 1e6)
+    out["host_us_a_batch"] = {"mark_dirty": statistics.median(mark),
+                              "append": statistics.median(append)}
+    return out
+
+
 def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
                  KS=SERVE_SETS, m=SERVE_M, mu=SERVE_ULL_M, n=SERVE_BATCH,
-                 reps=(20, 3, 200)):
+                 n_landing=None, reps=(20, 3, 200), routes=None):
     """Per kernel: the median time a call (CUDA events around the
     wrapper, so the host's share of the call is in it), the plain
-    version's, the device time from torch.profiler and the bound. The
-    probe and torch.add(x, 1.0) run in turns, reps[2] rounds."""
+    version's, the device time from torch.profiler and the bound;
+    ull_insert at the serving batch `n` and at the landing size
+    `n_landing` (default: the engine's landing buffer). The probe and
+    torch.add(x, 1.0) run in turns, reps[2] rounds. `routes` (engine
+    config overrides, sets, members, rounds) sizes the comparison of the
+    two set landing routes; the default is interval A at the deployment
+    defaults."""
     import torch
     from veneur_tpu_torch.kernels import compress as kc
     from veneur_tpu_torch.kernels import hll_stats as kh
@@ -1066,20 +1275,30 @@ def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
                             reps[0]),
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
         "shape": [KS, m]}
-    uregs, slots, idx, vals, _ = ull_insert_inputs(device, KS, mu, n)
-    bound, by, nbytes, ops = ull_insert_bound_ms(slots, idx, KS, mu)
+    n_landing = n_landing or landing_size()
+    insert_args = {}
+    for name, make in (
+            ("ull_insert", lambda: ull_insert_inputs(device, KS, mu, n)[:4]),
+            ("ull_insert_landing",
+             lambda: ull_insert_inputs(device, KS, mu, n_landing, 4)[:4]),
+            ("ull_insert_one_word",
+             lambda: one_word_inputs(device, KS, mu, n_landing))):
+        uregs, slots, idx, vals = make()
+        bound, by, nbytes, ops = ull_insert_bound_ms(slots, idx, KS, mu)
 
-    def fresh():
-        return ull.ULLBank(registers=uregs.clone())
+        def fresh(uregs=uregs):
+            return ull.ULLBank(registers=uregs.clone())
 
-    out["ull_insert"] = {
-        "ms": time_fresh_ms(lambda b: ki.fused_insert(b, slots, idx, vals),
-                            fresh, device, reps[0]),
-        "plain_ms": time_fresh_ms(
-            lambda b: ull._insert_impl(b, slots, idx, vals), fresh, device,
-            reps[0]),
-        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
-        "shape": [KS, mu, n]}
+        insert_args[name] = (fresh, slots, idx, vals)
+        out[name] = {
+            "ms": time_fresh_ms(
+                lambda b: ki.fused_insert(b, slots, idx, vals), fresh,
+                device, reps[0]),
+            "plain_ms": time_fresh_ms(
+                lambda b: ull._insert_impl(b, slots, idx, vals), fresh,
+                device, reps[0]),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
+            "shape": [KS, mu, slots.shape[0]]}
     x = torch.zeros(kp.SHAPE, dtype=torch.float32, device=device)
     bound, by, nbytes, ops = probe_bound_ms(x.numel())
     turns = time_turns_ms({"probe": lambda: kp.probe_add(x),
@@ -1092,34 +1311,43 @@ def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
         "shape": list(kp.SHAPE)}
     if device.type == "cuda":
-        fresh_banks = [fresh() for _ in range(10)]
         dev_ms = kernel_device_ms({
             "compress_kernel": [lambda: kc.fused_compress(*args, 100.0)] * 3,
             "hll_stats_kernel": [lambda: kh.hll_stats(regs)] * 10,
-            "ull_insert_kernel": [
-                (lambda b=b: ki.fused_insert(b, slots, idx, vals))
-                for b in fresh_banks],
             "probe_kernel": [lambda: kp.probe_add(x)] * 10}, device)
-        for name in out:
+        for name in ("compress", "hll_stats", "probe"):
             out[name]["device_ms"] = dev_ms.get(f"{name}_kernel")
+        # each shape on its own trace: both launch the same symbol
+        for name, (fresh, slots, idx, vals) in insert_args.items():
+            banks = [fresh() for _ in range(10)]
+            out[name]["device_ms"] = kernel_device_ms({
+                "ull_insert_kernel": [
+                    (lambda b=b: ki.fused_insert(b, slots, idx, vals))
+                    for b in banks]}, device).get("ull_insert_kernel")
+            del banks
         out["probe"]["library_device_ms"] = calls_device_ms(
             lambda: torch.add(x, 1.0), 10, device)
+    cfg_kw, sets, members, rounds = routes or (
+        {"set_backend": "ull"}, 1000, 1000, 3)
+    out["set_routes"] = time_set_routes(device, cfg_kw, sets, members,
+                                        rounds)
     return out
 
 
 # ------------------------------------------------------------- main
 
 # (name, source, the TPU kernel it replaces, the phase holding it
-# against its plain version)
+# against its plain version, the timing at the main path's shape)
 KERNELS = (
     ("compress", "veneur_tpu_torch/csrc/compress.cu",
-     "veneur_tpu/kernels/compress.py:232", "compress"),
+     "veneur_tpu/kernels/compress.py:232", "compress", "compress"),
     ("hll_stats", "veneur_tpu_torch/csrc/hll_stats.cu",
-     "veneur_tpu/kernels/hll_stats.py:75", "hll_stats"),
+     "veneur_tpu/kernels/hll_stats.py:75", "hll_stats", "hll_stats"),
     ("ull_insert", "veneur_tpu_torch/csrc/ull_insert.cu",
-     "veneur_tpu/kernels/ull_insert.py:55", "ull_insert"),
+     "veneur_tpu/kernels/ull_insert.py:55", "ull_insert",
+     "ull_insert_landing"),
     ("probe", "veneur_tpu_torch/csrc/probe.cu",
-     "veneur_tpu/kernels/__init__.py:83", "build"),
+     "veneur_tpu/kernels/__init__.py:83", "build", "probe"),
 )
 
 
@@ -1168,7 +1396,8 @@ def main() -> int:
             return "device and host shares not measured"
         return f"{dev_ms:.4f} ms on the device, host {call_ms - dev_ms:.4f} ms"
 
-    for name, t in timing.items():
+    kernel_timings = {k: t for k, t in timing.items() if k != "set_routes"}
+    for name, t in kernel_timings.items():
         lib = (f", library {t['library_ms']:.4f} ms a call "
                f"({split(t['library_ms'], t['library_device_ms'])})"
                if "library_ms" in t else "")
@@ -1185,7 +1414,28 @@ def main() -> int:
           f"{probe_t['library_ms']:.4f} ms a call, "
           f"{'not ' if probe_t['ms'] > probe_t['library_ms'] else ''}"
           f"within torch.add's | {card}")
+    routes = timing["set_routes"]
+    print(f"timing set landing routes, {routes['updates']} updates in "
+          f"batches of {routes['batch']}, in turns: one insert a batch "
+          f"{routes['old']['ms']:.2f} ms ({routes['old']['updates_per_s']:.0f}"
+          f" updates/s, {routes['old']['launches']} launches), landing "
+          f"buffer of {routes['capacity']} {routes['new']['ms']:.2f} ms "
+          f"({routes['new']['updates_per_s']:.0f} updates/s, "
+          f"{routes['new']['launches']} launches; the ingest loop "
+          f"{routes['new']['loop_ms']:.2f} ms, the remainder's landing "
+          f"{routes['new']['ms'] - routes['new']['loop_ms']:.2f} ms); "
+          f"host a batch: dirty marks "
+          f"{routes['host_us_a_batch']['mark_dirty']:.1f} us, append "
+          f"{routes['host_us_a_batch']['append']:.1f} us | {card}")
     for path, out in main_out.items():
+        for label, rec in out["intervals"].items():
+            if rec["set_updates"]:
+                print(f"timing set ingest {path} {label}: "
+                      f"{rec['set_updates']} updates in "
+                      f"{rec['set_ingest_ms']:.2f} ms, "
+                      f"{rec['set_updates_per_s']:.0f} updates/s, "
+                      f"ull_insert launches at ingest "
+                      f"{rec['set_ingest_launches']} | {card}")
         for label, rec in out["intervals"].items():
             print(f"timing flush {path} {label} ({rec['path']}): "
                   f"{rec['flush_ms']:.2f} ms, swap {rec['swap_ms']:.2f} ms, "
@@ -1193,8 +1443,8 @@ def main() -> int:
                   f"{rec['assembly_ms']:.2f} ms, gc {rec['gc_ms']:.2f} ms, "
                   f"kernel launches {rec['flush_launches']} | {card}")
     kernels = []
-    for name, source, replaces, phase in KERNELS:
-        t = timing[name]
+    for name, source, replaces, phase, timed in KERNELS:
+        t = timing[timed]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -9,6 +9,7 @@ is integer counts; `ml_estimate` is the same numpy code on the same
 counts, so the estimate is the same number.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,6 +56,22 @@ def test_join_matches_jax_on_every_byte_pair():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(tull.join_registers_np(u, v),
                                   jull.join_registers_np(u, v))
+
+
+def test_join_is_associative_and_commutative_on_every_byte():
+    """What lets the kernel fold a warp's values before it joins them into
+    a word, and land updates in any order: over all 256^3 byte triples,
+    join(join(a, b), c) == join(a, join(b, c)) and join(a, b) ==
+    join(b, a). It is not idempotent on every byte (join(1, 1) == 0), so
+    the kernel never joins the current byte in twice."""
+    a = np.arange(256)
+    table = tull.join_registers_np(*np.meshgrid(a, a, indexing="ij")) \
+        .astype(np.int64)
+    np.testing.assert_array_equal(table, table.T)
+    for c in range(256):
+        np.testing.assert_array_equal(table[table[:, :], c],
+                                      table[a[:, None], table[:, c][None, :]])
+    assert table[1, 1] == 0
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -233,3 +250,188 @@ def test_hash_updates_match_jax():
             np.testing.assert_array_equal(t, j)
         for x in h[:64].tolist():
             assert te.hash_update(x) == je.hash_update(x)
+
+
+# ---- models of the kernel's algorithm (csrc/ull_insert.cu: one CAS
+# loop per update) and of its warp pre-join variant
+# (variants/ull_insert_fold.cu, timed against it by ull_insert_fold.py)
+
+def _np_proves(x, q, k):
+    return ((q >= 1) & (k >= 1)
+            & ((q == k) | ((q == k + 1) & ((x >> 1) & 1 == 1))
+               | ((q == k + 2) & (x & 1 == 1))))
+
+
+def _kernel_constant(name):
+    import re
+    from veneur_tpu_torch.kernels import _build
+    src = open(f"{_build.PKG_DIR}/variants/ull_insert_fold.cu").read()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _kernel_model(regs, slots, idx, vals, seed=0, stats=None, fold=True):
+    """A model of the insert kernel's warp pre-join variant on a u8[K, m]
+    bank, in its steps; with `fold=False`, of the kernel itself, where
+    every live update joins its own byte (step 2 never folds).
+
+    1. One update a thread: a warp's 32 lanes hold 32 consecutive
+       updates. An update past n, or not live under the uint32 flat key,
+       carries the dead key.
+    2. Per warp: if no live lane's neighbour (lane + 1 mod 32) holds its
+       word, every live lane leads its word with its own byte. Otherwise
+       a live lane alone on its word still does; where live lanes share
+       a word, each distinct register among them folds its values by the
+       closed form of the multi-way join (qm = the largest q, b1 / b2 =
+       any value proves qm-1 / qm-2), the word ORs its registers' bytes
+       into a 4-byte image with a mask of the bytes present, and the
+       word's lowest lane leads.
+    3. The leaders' word joins, byte by byte, in a shuffled order (the
+       CAS loops land in no fixed order); `stats["word_joins"]` counts
+       them."""
+    K, m = regs.shape
+    n, total, u32 = len(slots), K * m, 0xFFFFFFFF
+    joins = []                                   # (word, image, present)
+    for base in range(0, n, 32):
+        i = base + np.arange(32)
+        inb = i < n
+        ii = np.where(inb, i, 0)
+        s = np.where(inb, slots[ii].astype(np.int64), -1)
+        c = np.where(inb, idx[ii].astype(np.int64), 0)
+        v = np.where(inb, vals[ii].astype(np.int64), 0)
+        flat = ((s & u32) * m + (c & u32)) & u32
+        live = (s >= 0) & (flat < total)
+        word = flat >> 2
+        sh = (flat & 3) * 8
+        near = fold and (live & np.roll(live, -1)
+                         & (word == np.roll(word, -1))).any()
+        for w in np.unique(word[live]):
+            lanes = np.nonzero(live & (word == w))[0]
+            if not near or len(lanes) == 1:
+                joins.extend((int(w), int(v[a]) << int(sh[a]),
+                              0xFF << int(sh[a])) for a in lanes)
+                continue
+            image = present = 0
+            for r in np.unique(flat[lanes]):
+                g = lanes[flat[lanes] == r]
+                q = v[g] >> 2
+                qm = int(q.max())
+                b1 = int(_np_proves(v[g], q, qm - 1).any())
+                b2 = int(_np_proves(v[g], q, qm - 2).any())
+                byte = (qm << 2) | (b1 << 1) | b2 if qm > 0 else 0
+                image |= byte << int(r & 3) * 8
+                present |= 0xFF << int(r & 3) * 8
+            joins.append((int(w), image, present))
+    if stats is not None:
+        stats["word_joins"] = len(joins)
+    out = regs.reshape(-1).copy()
+    for k in np.random.default_rng(seed).permutation(len(joins)):
+        w, image, present = joins[k]
+        for b in range(4):
+            if present >> (8 * b) & 0xFF:
+                out[4 * w + b] = tull.join_registers_np(
+                    out[4 * w + b], image >> (8 * b) & 0xFF)
+    return out.reshape(K, m)
+
+
+_j_insert_jit = jax.jit(jull._insert_impl)
+
+
+def _model_cases():
+    """(name, regs, slots, idx, vals) for the model tests."""
+    rng = np.random.default_rng(12)
+    out = []
+    for seed in range(2):
+        r = np.random.default_rng(seed)
+        out.append((f"random{seed}", *_batch(r, 6, 256, 2048)))
+    K, m = 4, 128
+    regs = rng.integers(0, 256, (K, m)).astype(np.uint8)
+    n = 1500
+    slots = rng.integers(0, K, n).astype(np.int32)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    vals = rng.integers(0, 256, n).astype(np.uint8)
+    slots[200:1200], idx[200:1200] = 2, 77                # 1000 hits
+    vals[200:1200] = (rng.integers(1, 52, 1000) << 2) \
+        | rng.integers(0, 4, 1000)
+    out.append(("hot_register", regs, slots, idx, vals))
+    n = 2048                                             # one word
+    out.append(("all_one_word", regs, np.full(n, 1, np.int32),
+                (40 + np.arange(n) % 4).astype(np.int32),
+                rng.integers(0, 256, n).astype(np.uint8)))
+    # a partial last thread, warp and tile: n not a multiple of anything
+    regs_p, slots_p, idx_p, vals_p = _batch(rng, 5, 64, 2048)
+    out.append(("partial_window", regs_p, slots_p[:1003], idx_p[:1003],
+                vals_p[:1003]))
+    K, m = 6, 128
+    regs, slots, idx, vals = _batch(rng, K, m, 1024)
+    edges = [(1, m), (K - 2, m), (K - 1, m), (0, -1), (3, -1),
+             (K - 1, m - 1), (K - 1, -1), (-1, m), (2, 2 * m + 3), (K, 0),
+             (1, -2 * m)]
+    for i, (s, c) in enumerate(edges):
+        for rep in range(3):
+            slots[16 * i + rep], idx[16 * i + rep] = s, c
+    out.append(("key_edges", regs, slots, idx, vals))
+    return out
+
+
+@pytest.mark.parametrize("case", _model_cases(), ids=lambda c: c[0])
+def test_kernel_model_matches_both_plain_inserts(case):
+    """The kernel's one join per update, and its variant's warp
+    grouping, per-register fold, per-word image and word joins, each in
+    a shuffled order, give the bytes of the port's plain insert and of
+    the JAX insert (jitted: integer ops, the same bytes as eager, one
+    compile a shape), on every byte; landing the batch again changes
+    nothing."""
+    _, regs, slots, idx, vals = case
+    want = np.asarray(_j_insert_jit(
+        jull.ULLBank(registers=jnp.asarray(regs)), jnp.asarray(slots),
+        jnp.asarray(idx), jnp.asarray(vals)).registers)
+    np.testing.assert_array_equal(_t_insert(regs, slots, idx, vals), want)
+    for fold in (False, True):
+        for seed in (0, 1):
+            got = _kernel_model(regs, slots, idx, vals, seed, fold=fold)
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            _kernel_model(want, slots, idx, vals, 2, fold=fold), want)
+
+
+def test_kernel_model_folds_a_warp_to_one_join_per_word():
+    """On one word hit by a whole CTA's tile of the variant (each warp's
+    lanes on all four of its registers), the variant's model makes one
+    word join per warp, the kernel's one per update; where lanes share
+    words only with lanes that are not their neighbours, no lane folds
+    and every live lane joins on its own."""
+    threads = _kernel_constant("kThreads")
+    regs = np.zeros((2, 64), np.uint8)
+    slots = np.zeros(threads, np.int32)
+    idx = (np.arange(threads) % 4).astype(np.int32)
+    vals = (np.arange(threads) % 50 << 2).astype(np.uint8)
+    stats = {}
+    folded = _kernel_model(regs, slots, idx, vals, stats=stats)
+    np.testing.assert_array_equal(folded, _t_insert(regs, slots, idx, vals))
+    assert (folded != 0).sum() == 4
+    assert stats["word_joins"] == threads // 32
+    _kernel_model(regs, slots, idx, vals, stats=stats, fold=False)
+    assert stats["word_joins"] == threads
+    # lanes 0, 2, 4, ... on word 0 and 1, 3, 5, ... on word 1
+    idx = (np.arange(threads) % 2 * 4).astype(np.int32)
+    apart = _kernel_model(regs, slots, idx, vals, stats=stats)
+    np.testing.assert_array_equal(apart, _t_insert(regs, slots, idx, vals))
+    assert stats["word_joins"] == threads
+
+
+def test_fold_tool_counts_updates_that_share_a_word_in_their_warp():
+    """ull_insert_fold.py's crowded share: the live updates whose warp of
+    32 consecutive updates holds another live update on the same 32-bit
+    word (under the uint32 flat key), out of all live updates."""
+    from ull_insert_fold import crowded_share
+    m, total = 256, 4 * 256
+    slots = np.zeros(64, np.int32)
+    idx = np.arange(64, dtype=np.int32) * 4       # 64 distinct words
+    assert crowded_share(slots, idx, m, total) == 0.0
+    idx[1] = idx[0] + 3                            # lane 1 joins 0's word
+    slots[2:4] = -1                                # two dead lanes
+    idx[5] = idx[4]                                # same register
+    slots[40], idx[40] = 1, -m + idx[41]           # key wraps onto 41's
+    slots[41] = 0
+    assert crowded_share(slots, idx, m, total) == 6 / 62
+    assert crowded_share(np.full(3, -1), np.zeros(3), m, total) == 0.0

@@ -23,12 +23,19 @@
 // wrapper guarantees a 4-byte aligned base and m % 4 == 0, so a word
 // never straddles two rows or the end of the bank.
 //
-// What bounds it on the H100: launch latency. The bytes that must move
-// are the update arrays (9 bytes an update) and the touched words (read
-// and written, 8 bytes at most an update): ~0.14 MB for a batch of 8192,
-// ~0.04 us at 3.35 TB/s, far below one launch. Contention (one hot
-// register, or neighbouring registers of one word) makes the CAS retry;
-// it costs time, never correctness.
+// What bounds it on the H100: latency, not bytes. The bytes that must
+// move are the update arrays (9 bytes an update) and the touched words
+// (read and written, 8 bytes at most an update): ~2.2 MB for the
+// engine's landing of 131072 updates, ~0.7 us at 3.35 TB/s, below one
+// launch. The engine lands set updates in batches of up to 131072
+// (models/pipeline.py:_SetLanding), so few launches carry many updates.
+// Contention (one hot register, or neighbouring registers of one word)
+// makes the CAS retry; it costs time, never correctness. A hot member
+// repeats one value, which the loop absorbs without writing. A variant
+// that pre-joins a warp's updates on one word before one CAS loop a word
+// (variants/ull_insert_fold.cu) wins only where many distinct values
+// crowd one word, and is slower on random, hashed and hot-member
+// batches; ull_insert_fold.py times both.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

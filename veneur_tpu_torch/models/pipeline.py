@@ -16,6 +16,13 @@ REQ for histograms, HLL or ULL for sets. On the card the t-digest
 compress, the HLL estimate reduction and the ULL insert are hand-written
 CUDA kernels (kernels/); REQ and the ULL value histogram are eager torch.
 
+Set updates do not land batch by batch: they are appended to a host
+landing buffer (`_SetLanding`, `SET_LANDING_BATCHES` batches deep) and
+land in one insert when it would overflow, at `drain_all()` and, for the
+retiring interval, in the flush. Both set inserts (HLL's scatter-max,
+ULL's lattice join) are order-free, so where a batch lands changes no
+byte.
+
 PyTorch runs eagerly, so the JAX package's cached executables, output
 shardings and buffer donation have no counterpart here: every op is a
 plain function on tensors, and the flush "program" is a Python function
@@ -278,6 +285,45 @@ class _Stage:
         return out
 
 
+# depth of the set landing buffer, in batches of `batch_size` updates
+SET_LANDING_BATCHES = 16
+
+
+class _SetLanding:
+    """Host landing buffer of set updates (slots i32, reg_idx i32, vals
+    u8): batches are appended at ingest and land in the set bank together,
+    with one host-to-device copy of each array and one insert. Rows with
+    slot -1 are padding, dropped by the insert."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.n = 0
+        self.slots = np.empty(capacity, np.int32)
+        self.reg_idx = np.empty(capacity, np.int32)
+        self.vals = np.empty(capacity, np.uint8)
+
+    def fits(self, k: int) -> bool:
+        return self.n + k <= self.capacity
+
+    def append(self, slots, reg_idx, vals):
+        i, k = self.n, len(slots)
+        self.slots[i:i + k] = slots
+        self.reg_idx[i:i + k] = reg_idx
+        self.vals[i:i + k] = vals
+        self.n = i + k
+
+    def take(self, extra=None) -> tuple:
+        """The buffered updates, followed by `extra` (slots, reg_idx,
+        vals) if given, and reset. Without `extra` the arrays are views of
+        the buffer, valid until the next append."""
+        n, self.n = self.n, 0
+        out = (self.slots[:n], self.reg_idx[:n], self.vals[:n])
+        if extra is not None:
+            out = tuple(np.concatenate([a, np.asarray(b, a.dtype)])
+                        for a, b in zip(out, extra))
+        return out
+
+
 class AggregationEngine:
     def __init__(self, config: EngineConfig | None = None, device=None):
         """`device` defaults to "cuda"; with no card present that raises —
@@ -322,6 +368,7 @@ class AggregationEngine:
                                        "values": f32, "seqs": i32})
         self._set_stage = _Stage(b, {"slots": (np.int32, -1),
                                      "reg_idx": i32, "rho": (np.uint8, 0)})
+        self._set_landing = _SetLanding(SET_LANDING_BATCHES * b)
         self._gauge_seq = 0
         # quantiles: the configured percentiles, plus 0.5 when the
         # `median` aggregate is requested (veneur's median is quantile 0.5)
@@ -475,8 +522,7 @@ class AggregationEngine:
 
     def ingest_set_batch(self, slots, reg_idx, rho, count=None):
         def apply():
-            self.set_bank = self._land_sets(
-                self.set_bank, self._dirty, slots, reg_idx, rho)
+            self._buffer_sets(slots, reg_idx, rho)
         self._ingest_batch(slots, count, apply)
 
     def _dispatch_histos(self):
@@ -499,16 +545,35 @@ class AggregationEngine:
 
     def _dispatch_sets(self):
         a = self._set_stage.drain()
-        self.set_bank = self._land_sets(
-            self.set_bank, self._dirty, a["slots"], a["reg_idx"], a["rho"])
+        self._buffer_sets(a["slots"], a["reg_idx"], a["rho"])
+
+    def _buffer_sets(self, slots, reg_idx, rho):
+        """Mark a batch of set updates' rows dirty and append the batch to
+        the live landing buffer, landing the buffer first when the batch
+        would overflow it; a batch larger than the whole buffer lands on
+        its own."""
+        self._mark_dirty_into(self._dirty, 3, slots)
+        buf = self._set_landing
+        k = len(slots)
+        if k > buf.capacity:
+            self.set_bank = self._insert_sets(self.set_bank, slots, reg_idx,
+                                              rho)
+            return
+        if not buf.fits(k):
+            self.set_bank = self._land_set_buffer(self.set_bank, buf)
+        buf.append(slots, reg_idx, rho)
 
     def drain_all(self):
+        """Land every staged sample and the set landing buffer in the
+        live banks."""
         for st, fn in ((self._histo_stage, self._dispatch_histos),
                        (self._counter_stage, self._dispatch_counters),
                        (self._gauge_stage, self._dispatch_gauges),
                        (self._set_stage, self._dispatch_sets)):
             if st.n:
                 fn()
+        self.set_bank = self._land_set_buffer(self.set_bank,
+                                              self._set_landing)
 
     # ---- landing cores: take and return the bank and mark the PASSED
     # bitmap — shared by live ingest (live banks + live bitmap) and the
@@ -599,11 +664,20 @@ class AggregationEngine:
                                 self._tensor(values, np.float32),
                                 self._tensor(seqs, np.int32))
 
-    def _land_sets(self, bank, dirty, slots, reg_idx, rho):
-        self._mark_dirty_into(dirty, 3, slots)
+    def _insert_sets(self, bank, slots, reg_idx, rho):
         return self._seng.insert(bank, self._tensor(slots, np.int32),
                                  self._tensor(reg_idx, np.int32),
                                  self._tensor(rho, np.uint8))
+
+    def _land_set_buffer(self, bank, buf, extra=None):
+        """Land a landing buffer's updates, and `extra` (slots, reg_idx,
+        vals) with them, in one insert into `bank`. The copies to the
+        card are synchronous (pageable memory), so the buffer may be
+        refilled as soon as this returns."""
+        slots, reg_idx, rho = buf.take(extra)
+        if not len(slots):
+            return bank
+        return self._insert_sets(bank, slots, reg_idx, rho)
 
     # ---------------- flush ----------------
 
@@ -728,10 +802,11 @@ class AggregationEngine:
             ki.advance_interval()
         return active, status, samples, dropped, histo_key_count
 
-    def _land_retired(self, snap, dirty, stages) -> tuple:
+    def _land_retired(self, snap, dirty, stages, set_landing) -> tuple:
         """Outside the lock (double-buffered flush): drain the retired
         interval's stage buffers into the retired banks, marking the
-        retired bitmaps."""
+        retired bitmaps; the set stage lands together with the retired
+        set landing buffer, in one insert."""
         hb, cb, gb, sb = snap
         a = stages.get("histo")
         if a is not None:
@@ -746,9 +821,11 @@ class AggregationEngine:
             gb = self._land_gauges(gb, dirty, a["slots"], a["values"],
                                    a["seqs"])
         a = stages.get("set")
+        extra = None
         if a is not None:
-            sb = self._land_sets(sb, dirty, a["slots"], a["reg_idx"],
-                                 a["rho"])
+            self._mark_dirty_into(dirty, 3, a["slots"])
+            extra = (a["slots"], a["reg_idx"], a["rho"])
+        sb = self._land_set_buffer(sb, set_landing, extra)
         return hb, cb, gb, sb
 
     def flush(self, timestamp: int | None = None) -> FlushResult:
@@ -769,12 +846,14 @@ class AggregationEngine:
                                        ("set", self._set_stage))
                       if st.n}
             self._gauge_seq = 0
+            set_landing = self._set_landing
+            self._set_landing = _SetLanding(set_landing.capacity)
             snap = self._swap_banks()
             dirty = self._retire_dirty()
             active, status, samples, dropped, histo_key_count = \
                 self._flush_bookkeeping()
         t_swap = time.monotonic_ns()
-        snap = self._land_retired(snap, dirty, stages)
+        snap = self._land_retired(snap, dirty, stages, set_landing)
         host = self._flush_device(snap, dirty=dirty)
         t_device = time.monotonic_ns()
 
