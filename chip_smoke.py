@@ -67,9 +67,35 @@ the run:
                routes on interval A's 1M updates: one insert per batch
                of 8192 (the route before the landing buffer) against the
                engine's landing buffer.
+  7. server    the port's Server (server.py) in-process on the card at
+               the deployment defaults (Config(): 32768 histogram, 16384
+               counter, 16384 gauge and 4096 set slots, batch 8192,
+               t-digest + HLL, one worker), a UDP listener, the HTTP
+               listener and a capture sink. Interval S1 arrives over real
+               UDP in datagrams of at most 4096 bytes, paced so none is
+               dropped: 20000 timer keys x 10 samples (tagged), 5000
+               counters x 4 (a fifth at @0.5), 5000 gauges, 1000 sets x
+               100 members, 100 service checks, 10 events and a bad
+               line; then drain() and flush_once(); then an empty S2.
+               Checked: every datagram received, one parse error, no
+               worker drop; S1's rows against numpy truth (the contract
+               of phase 5), the status rows and the events; S2 carries
+               only veneur.* rows, S1's phase timers among them;
+               /healthcheck, /healthz and /debug/flush (S1's tick with
+               its engine phases); the kernel launches of each step
+               equal SERVER_LAUNCHES; stop() within 10 s, no thread
+               left. Printed: the UDP ingest rate (datagrams/s and
+               lines/s, from the first send to drain() returning) and
+               S1's and S2's flush times from their
+               veneur.flush.*_duration_ns rows. Then the daemon itself:
+               `python3 -m veneur_tpu_torch.cli.veneur -f <yaml>` in a
+               subprocess on the card (interval 1 s, a UDP listener, a
+               flush_file) takes one burst of datagrams, writes every
+               counter sample to its flush file, and exits 0 on SIGTERM.
 
-Then it prints one JSON line describing every kernel, the card's name
-and power limit as nvidia-smi reports them, and, last, the device line
+Then it prints one JSON line describing every kernel (its launches are
+those of phases 5 and 7, the main paths), the card's name and power
+limit as nvidia-smi reports them, and, last, the device line
 {"ok": true, "device": {...}}. Without a card, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -79,11 +105,13 @@ from __future__ import annotations
 import gc
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import time
 import traceback
+import types
 
 import numpy as np
 
@@ -1334,6 +1362,334 @@ def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
     return out
 
 
+# ------------------------------------------------------------- phase 7
+
+# interval S1's traffic: (keys, samples a key) of timers, counters (a
+# fifth at @0.5), gauges, sets (keys, members), service checks, events
+SERVER_PLAN = {"timers": (20000, 10), "counters": (5000, 4),
+               "gauges": 5000, "sets": (1000, 100), "checks": 100,
+               "events": 10}
+
+# the server phase's launches, predicted from the code before the first
+# run (PERF.md section 6): the probe once, at the one engine's
+# construction; in S1's flush compress and hll_stats once for the baseline
+# rows of an empty flush (the engine's first incremental flush) and once
+# for the 20000-row work set; in S2's flush (only S1's phase timers are
+# dirty) once each; none at ingest; ull_insert never
+SERVER_LAUNCHES = {
+    "construction": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                     "probe": 1},
+    "ingest": {"compress": 0, "hll_stats": 0, "ull_insert": 0, "probe": 0},
+    "S1": {"compress": 2, "hll_stats": 2, "ull_insert": 0, "probe": 0},
+    "S2": {"compress": 1, "hll_stats": 1, "ull_insert": 0, "probe": 0},
+}
+
+# the engine's own phases of an incremental flush, grafted under
+# engine.flush in the tick's phase tree
+ENGINE_PHASES = ("engine.swap", "engine.drain", "engine.gather",
+                 "engine.device.dispatch", "engine.device.exec",
+                 "engine.device.fetch", "engine.scatter",
+                 "engine.materialize")
+
+
+def server_traffic(rng, plan):
+    """S1's DogStatsD lines, shuffled, with their truth: the Truth of the
+    metric lines, each service check's status, the event titles; one bad
+    line among them."""
+    from veneur_tpu_torch.ingest.parser import UDPMetric, parse_packet
+    lines = []
+    nt, per = plan["timers"]
+    for i in range(nt):
+        for v in rng.lognormal(3, 1, per):
+            lines.append(f"srv.lat.{i}:{v:.4f}|ms|#shard:{i % 8},env:chip")
+    nc, per = plan["counters"]
+    for i in range(nc):
+        rate = "|@0.5" if i % 5 == 0 else ""
+        for v in rng.integers(1, 100, per):
+            lines.append(f"srv.hits.{i}:{v}|c{rate}")
+    for i in range(plan["gauges"]):
+        lines.append(f"srv.temp.{i}:{rng.normal(50, 10):.3f}|g")
+    ns, members = plan["sets"]
+    for i in range(ns):
+        for j in range(members):
+            lines.append(f"srv.users.{i}:u{i}-{j}|s")
+    checks = {f"srv.check.{i}": i % 4 for i in range(plan["checks"])}
+    lines += [f"_sc|{name}|{st}|#run:s1|m:ok" for name, st in checks.items()]
+    titles = [f"deploy {i}" for i in range(plan["events"])]
+    lines += [f"_e{{{len(t)},4}}:{t}|done|#run:s1" for t in titles]
+    lines.append("srv.bad:not-a-number|c")
+    lines = [lines[i].encode() for i in rng.permutation(len(lines))]
+    truth = Truth()
+    for ln in lines:
+        if not ln.startswith((b"_", b"srv.bad")):
+            m = parse_packet(ln)
+            check(isinstance(m, UDPMetric), f"{ln!r} is not a metric")
+            truth.add_parsed(m)
+    return lines, truth, checks, titles
+
+
+def pack_datagrams(lines, max_len):
+    """Newline-joined lines in datagrams of at most max_len bytes."""
+    out, cur, size = [], [], 0
+    for ln in lines:
+        if cur and size + 1 + len(ln) > max_len:
+            out.append(b"\n".join(cur))
+            cur, size = [], 0
+        size += len(ln) + (1 if cur else 0)
+        cur.append(ln)
+    if cur:
+        out.append(b"\n".join(cur))
+    return out
+
+
+def wait_until(pred, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def send_paced(srv, dgrams):
+    """Send every datagram to the server's UDP port in bursts of at most a
+    quarter of its socket's receive buffer, each followed by a wait until
+    the server has received every datagram sent and its worker queues are
+    under half full: loopback drops what overflows the buffer, and a full
+    worker queue drops lines."""
+    rcvbuf = srv._sockets[0].getsockopt(socket.SOL_SOCKET,
+                                        socket.SO_RCVBUF)
+    budget = max(4 * 4096, rcvbuf // 4)
+    dest = ("127.0.0.1", srv.bound_port())
+    sent = 0
+
+    def settled():
+        return srv.packets_received >= sent and all(
+            q.qsize() < q.maxsize // 2 for q in srv.worker_queues)
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+        i = 0
+        while i < len(dgrams):
+            burst = 0
+            while i < len(dgrams) and (burst == 0 or
+                                       burst + len(dgrams[i]) <= budget):
+                sock.sendto(dgrams[i], dest)
+                burst += len(dgrams[i])
+                i += 1
+            sent = i
+            wait_until(settled, 120, f"{sent} datagrams received")
+    return {"rcvbuf": rcvbuf, "burst_bytes": budget}
+
+
+def http_get(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.status, r.read()
+
+
+def free_port(kind):
+    """A loopback port free for a socket of `kind` (SOCK_STREAM or
+    SOCK_DGRAM) at the time of the call."""
+    with socket.socket(socket.AF_INET, kind) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_server(device, cfg_kw=None, plan=None):
+    """The port's Server at the deployment defaults on `device`: S1 over
+    real UDP (paced), drained and flushed, then an empty S2; rows against
+    numpy truth, the packet counters, the status rows and events, the
+    HTTP routes, the launches against SERVER_LAUNCHES (on the card), and
+    a clean stop. `cfg_kw` and `plan` override the widths and the traffic
+    (CPU rehearsals at small shapes)."""
+    from veneur_tpu_torch import kernels
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.metrics import MetricType
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.basic import CaptureMetricSink
+    plan = plan or SERVER_PLAN
+    rng = np.random.default_rng(17)
+    lines, truth, checks, titles = server_traffic(rng, plan)
+    cfg = Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                 http_address=f"127.0.0.1:{free_port(socket.SOCK_STREAM)}",
+                 interval="3600s", hostname="chip", **(cfg_kw or {}))
+    dgrams = pack_datagrams(lines, cfg.metric_max_length)
+    cap = CaptureMetricSink()
+    launches = {}
+
+    def counted(label, fn):
+        before = dict(kernels.launches)
+        out = fn()
+        launches[label] = {k: n - before[k]
+                           for k, n in kernels.launches.items()}
+        return out
+
+    kernels.reset_launches()
+    srv = counted("construction",
+                  lambda: Server(cfg, sinks=[cap], device=device))
+    out = {"datagrams": len(dgrams), "lines": len(lines)}
+    try:
+        srv.start()
+
+        def ingest():
+            t0 = time.perf_counter()
+            out.update(send_paced(srv, dgrams))
+            check(srv.drain(timeout=120), "drain() timed out")
+            return time.perf_counter() - t0
+
+        secs = counted("ingest", ingest)
+        out["ingest_s"] = secs
+        out["datagrams_per_s"] = len(dgrams) / secs
+        out["lines_per_s"] = len(lines) / secs
+        flushes = []
+        for n, label in ((1, "S1"), (2, "S2")):
+            check(srv.drain(timeout=120), "drain() timed out")
+            counted(label, lambda n=n: srv.flush_once(timestamp=2000 + n))
+            check(cap.wait_for_flush(n, timeout=120),
+                  f"{label}: the sink got no flush")
+            for t in list(srv._sink_inflight.values()):
+                t.join(120)
+            rows = {(m.name, tuple(m.tags)): m for m in cap.flushes[n - 1]}
+            flushes.append(rows)
+            out[label] = {
+                k.split(".")[-1]: rows[(f"veneur.flush.{k}", ())].value / 1e6
+                for k in ("total_duration_ns", "swap_duration_ns",
+                          "merge_duration_ns", "assembly_duration_ns")}
+            out[label]["rows"] = len(rows)
+        s1, s2 = flushes
+        want_packets = {"veneur.packet.received_total": len(dgrams),
+                        "veneur.packet.error_total": 1,
+                        "veneur.worker.dropped_total": 0}
+        for name, want in want_packets.items():
+            got = s1[(name, ())].value
+            check(got == want, f"S1 {name}: {got}, expected {want}")
+        data = [m for m in s1.values() if not m.name.startswith("veneur.")
+                and m.type != MetricType.STATUS]
+        res = types.SimpleNamespace(metrics=data, frame=data)
+        out["worst"] = check_against_truth(res, truth, srv.engines[0], "S1")
+        status = {m.name: m.value for m in s1.values()
+                  if m.type == MetricType.STATUS}
+        check(status == {k: float(v) for k, v in checks.items()},
+              f"S1 status rows: {len(status)} of {len(checks)} right")
+        check(sorted(e.title for e in cap.events) == sorted(titles),
+              f"events reaching flush_other: {len(cap.events)}")
+        check(all(k[0].startswith("veneur.") for k in s2),
+              "S2 carried rows other than veneur.*")
+        for ph in ("engine", "telemetry", "fanout", "total"):
+            key = (f"veneur.flush.phase.{ph}.count", ())
+            check(key in s2 and s2[key].value == 1.0,
+                  f"S2: no timer of S1's {ph} phase")
+        port = srv.http_api.port
+        check(http_get(port, "/healthcheck") == (200, b"ok\n"),
+              "/healthcheck")
+        code, body = http_get(port, "/healthz")
+        health = json.loads(body)
+        check(code == 200 and health["healthy"] and health["ready"],
+              f"/healthz: {code} {health}")
+        code, body = http_get(port, "/debug/flush")
+        ticks = json.loads(body)["flight_recorder"]["ticks"]
+        tick1 = [t for t in ticks if t["tick_id"] == 1]
+        check(code == 200 and len(tick1) == 1, "/debug/flush: no tick 1")
+        names = {p["name"] for p in tick1[0]["phases"]}
+        missing = set(ENGINE_PHASES + ("engine.flush",)) - names
+        check(not missing, f"/debug/flush tick 1 lacks {sorted(missing)}")
+        out["tick1_phases"] = sorted(names)
+        out["health"] = health["status"]
+    finally:
+        t0 = time.monotonic()
+        srv.stop()
+        out["stop_s"] = time.monotonic() - t0
+    check(out["stop_s"] < 10.0, f"stop() took {out['stop_s']:.1f} s")
+    alive = [t.name for t in srv._threads if t.is_alive()]
+    check(not alive, f"threads alive after stop(): {alive}")
+    out["launches_by_step"] = launches
+    out["launches"] = {k: sum(step[k] for step in launches.values())
+                       for k in kernels.launches}
+    print(f"server launches: {json.dumps(launches)}")
+    if device.type == "cuda":
+        check(launches == SERVER_LAUNCHES,
+              f"server launches {launches}, predicted {SERVER_LAUNCHES}")
+    print(f"server: {json.dumps(out)}")
+    return out
+
+
+def phase_server_cli(device, cfg_kw=None):
+    """The daemon's entry point on `device`: `python3 -m
+    veneur_tpu_torch.cli.veneur -f <yaml>` in a subprocess (the deployment
+    defaults, interval 1 s, a UDP listener, a flush_file), one burst of
+    datagrams, the flush file until it holds every counter sample,
+    SIGTERM, exit 0. `cfg_kw` adds config keys (CPU rehearsals at small
+    widths)."""
+    import signal
+    import tempfile
+    import threading
+    backend = "cpu" if device.type == "cpu" else "tpu"
+    port = free_port(socket.SOCK_DGRAM)
+    lines = [f"cli.count.{i % 50}:{i % 7 + 1}|c".encode() for i in range(2000)]
+    lines += [f"cli.lat.{i % 50}:{i % 97}|ms".encode() for i in range(2000)]
+    want = float(sum(i % 7 + 1 for i in range(2000)))
+    dgrams = pack_datagrams(lines, 4096)
+    out = {"datagrams": len(dgrams)}
+    with tempfile.TemporaryDirectory() as tmp:
+        flush = os.path.join(tmp, "flush.tsv")
+        cfg = os.path.join(tmp, "veneur.yaml")
+        with open(cfg, "w") as f:
+            f.write(f'interval: "1s"\nhostname: chip-cli\n'
+                    f'statsd_listen_addresses: ["udp://127.0.0.1:{port}"]\n'
+                    f'flush_file: "{flush}"\n'
+                    f"aggregation_backend: {backend}\n")
+            for k, v in (cfg_kw or {}).items():
+                f.write(f"{k}: {v}\n")
+        t0 = time.monotonic()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "veneur_tpu_torch.cli.veneur", "-f", cfg],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)
+        log = []
+        serving = threading.Event()
+
+        def read_log():
+            for line in proc.stderr:
+                log.append(line)
+                if "serving on " in line:
+                    serving.set()
+
+        reader = threading.Thread(target=read_log, daemon=True)
+        reader.start()
+
+        def counted():
+            if not os.path.exists(flush):
+                return 0.0
+            with open(flush) as f:
+                rows = [r.split("\t") for r in f if r.endswith("\n")]
+            return sum(float(r[5]) for r in rows
+                       if r[0].startswith("cli.count."))
+
+        try:
+            check(serving.wait(300), "the CLI did not start serving: "
+                  + "".join(log[-20:]))
+            out["start_s"] = time.monotonic() - t0
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+                for d in dgrams:
+                    sock.sendto(d, ("127.0.0.1", port))
+            wait_until(lambda: counted() >= want, 60,
+                       "the flush file to hold every counter sample")
+            check(counted() == want, f"flush file counters {counted()} "
+                  f"!= {want}")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait(10)
+            reader.join(10)
+        out["exit_code"] = rc
+        check(rc == 0, f"the CLI exited {rc} on SIGTERM: "
+              + "".join(log[-20:]))
+    print(f"server cli: {json.dumps(out)}")
+    return out
+
+
 # ------------------------------------------------------------- main
 
 # (name, source, the TPU kernel it replaces, the phase holding it
@@ -1383,6 +1739,8 @@ def main() -> int:
     main_out = {path: ph.run(f"main path {path}", phase_main, device, path)
                 for path in PATHS}
     report["timing"] = ph.run("timing", phase_timing, device)
+    server = ph.run("server", phase_server, device)
+    cli = ph.run("server cli", phase_server_cli, device)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}",
               file=sys.stderr)
@@ -1442,14 +1800,33 @@ def main() -> int:
                   f"merge {rec['merge_ms']:.2f} ms, host assembly "
                   f"{rec['assembly_ms']:.2f} ms, gc {rec['gc_ms']:.2f} ms, "
                   f"kernel launches {rec['flush_launches']} | {card}")
+    print(f"timing server UDP ingest: {server['datagrams']} datagrams, "
+          f"{server['lines']} lines from the first send to drain() "
+          f"returning in {server['ingest_s']:.3f} s: "
+          f"{server['datagrams_per_s']:.0f} datagrams/s, "
+          f"{server['lines_per_s']:.0f} lines/s (a lower bound: the sender "
+          f"waits after each burst of {server['burst_bytes']} bytes; "
+          f"SO_RCVBUF {server['rcvbuf']}) | {card}")
+    for label in ("S1", "S2"):
+        f = server[label]
+        print(f"timing server flush {label}: total "
+              f"{f['total_duration_ns']:.2f} ms, swap "
+              f"{f['swap_duration_ns']:.2f} ms, merge "
+              f"{f['merge_duration_ns']:.2f} ms, assembly "
+              f"{f['assembly_duration_ns']:.2f} ms, {f['rows']} rows, "
+              f"kernel launches {server['launches_by_step'][label]} | {card}")
+    print(f"server cli: python3 -m veneur_tpu_torch.cli.veneur serving "
+          f"{cli['start_s']:.2f} s after its start; {cli['datagrams']} "
+          f"datagrams flushed to its flush_file; exit {cli['exit_code']} on "
+          f"SIGTERM | {card}")
+    paths = [*main_out.values(), server]
     kernels = []
     for name, source, replaces, phase, timed in KERNELS:
         t = timing[timed]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(out["launches"][name]
-                            for out in main_out.values()),
+            "launches": sum(out["launches"][name] for out in paths),
             "max_abs_err": report[phase]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -1,4 +1,4 @@
-"""chip_smoke.py's phases 4-6 rehearsed on the CPU at small shapes.
+"""chip_smoke.py's phases 4-7 rehearsed on the CPU at small shapes.
 
 On the CPU every kernel wrapper runs its plain version, so these show
 that the script's cases, checks, timings and reports run end to end and
@@ -70,3 +70,38 @@ def test_phase_timing_reports_both_insert_shapes_and_routes():
         assert r[route]["ms"] > 0 and r[route]["updates_per_s"] > 0
     assert 0 < r["new"]["loop_ms"] <= r["new"]["ms"]
     assert set(r["host_us_a_batch"]) == {"mark_dirty", "append"}
+
+
+def test_phase_server_rehearsal():
+    """Phase 7 at small widths and traffic: the port's Server on the CPU
+    over real UDP, its rows against numpy truth, its HTTP routes and its
+    stop (the launch check runs on the card only)."""
+    plan = {"timers": (300, 10), "counters": (100, 4), "gauges": 100,
+            "sets": (20, 100), "checks": 10, "events": 3}
+    cfg_kw = {"tpu_histogram_slots": 1024, "tpu_counter_slots": 256,
+              "tpu_gauge_slots": 256, "tpu_set_slots": 64,
+              "tpu_batch_size": 256}
+    out = cs.phase_server(CPU, cfg_kw=cfg_kw, plan=plan)
+    assert out["lines"] == 3000 + 400 + 100 + 2000 + 10 + 3 + 1
+    assert out["datagrams"] < out["lines"] / 20
+    assert out["datagrams_per_s"] > 0 and out["lines_per_s"] > 0
+    for label in ("S1", "S2"):
+        assert out[label]["total_duration_ns"] > 0
+        assert set(out[label]) == {"total_duration_ns", "swap_duration_ns",
+                                   "merge_duration_ns",
+                                   "assembly_duration_ns", "rows"}
+    assert set(cs.ENGINE_PHASES) <= set(out["tick1_phases"])
+    assert out["health"] == "ok" and out["stop_s"] < 10
+    # the wrappers run their plain versions here and count nothing
+    assert all(n == 0 for n in out["launches"].values())
+    assert set(out["launches_by_step"]) == set(cs.SERVER_LAUNCHES)
+
+
+def test_phase_server_cli_rehearsal():
+    """Phase 7's daemon step on the CPU: the CLI in a subprocess takes one
+    burst over UDP, flushes it to its file and exits 0 on SIGTERM."""
+    out = cs.phase_server_cli(CPU, cfg_kw={
+        "tpu_histogram_slots": 256, "tpu_counter_slots": 128,
+        "tpu_gauge_slots": 128, "tpu_set_slots": 64, "tpu_batch_size": 256})
+    assert out["exit_code"] == 0 and out["datagrams"] >= 2
+    assert out["start_s"] > 0

@@ -1,7 +1,8 @@
 """The port stands apart from the JAX package.
 
 Importing every module of veneur_tpu_torch, and chip_smoke.py, pulls in
-neither jax nor any veneur_tpu module (checked in a fresh interpreter);
+neither jax nor any veneur_tpu module, nor yaml, google.protobuf or grpc,
+which the card's machine may lack (checked in a fresh interpreter);
 chip_smoke.py refuses to run without a card or without the package
 beside it, and then prints no result.
 """
@@ -24,9 +25,21 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "veneur_tpu" or m.startswith("veneur_tpu."))
-print(len(names))
+absent = sorted(m for m in sys.modules
+                if m in ("yaml", "grpc") or m.startswith(
+                    ("yaml.", "grpc.", "google.protobuf")))
+print(",".join(names))
 print(",".join(bad))
+print(",".join(absent))
 """
+
+# the server's path: each must be among the modules imported above
+SERVER_PATH = ("veneur_tpu_torch.server", "veneur_tpu_torch.http_api",
+               "veneur_tpu_torch.config", "veneur_tpu_torch.cli.veneur",
+               "veneur_tpu_torch.observe", "veneur_tpu_torch.observe.fleet",
+               "veneur_tpu_torch.observe.recorder",
+               "veneur_tpu_torch.observe.registry",
+               "veneur_tpu_torch.sinks", "veneur_tpu_torch.sinks.basic")
 
 
 def _clean_env():
@@ -40,9 +53,12 @@ def test_port_and_chip_smoke_import_no_jax():
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split("\n")[-3:-1]
-    assert int(count) >= 20
+    names, bad, absent = out.stdout.split("\n")[-4:-1]
+    names = names.split(",")
+    assert len(names) >= 30
+    assert set(SERVER_PATH) <= set(names)
     assert bad == "", f"JAX-side modules imported: {bad}"
+    assert absent == "", f"yaml/protobuf/grpc imported: {absent}"
 
 
 def _run_chip_smoke(cwd):

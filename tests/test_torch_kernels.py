@@ -9,6 +9,8 @@ one and holds it against its plain version there.
 import os
 import re
 import stat
+import sys
+import threading
 
 import pytest
 import torch
@@ -23,6 +25,28 @@ def test_probe_on_cpu_runs_plain_and_counts_nothing():
     assert probe.probe("cpu")
     x = torch.arange(6, dtype=torch.float32).reshape(2, 3)
     assert torch.equal(probe.probe_add(x), x + 1)
+    assert all(n == 0 for n in kernels.launches.values())
+
+
+def test_count_launch_loses_no_count_under_threads():
+    """8 threads x 10000 calls, with a short switch interval so that the
+    threads interleave inside the increment: every call is counted."""
+    kernels.reset_launches()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ths = [threading.Thread(
+            target=lambda: [kernels.count_launch("compress")
+                            for _ in range(10000)]) for _ in range(8)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(60)
+        assert not any(t.is_alive() for t in ths)
+    finally:
+        sys.setswitchinterval(old)
+    assert kernels.launches["compress"] == 80000
+    kernels.reset_launches()
     assert all(n == 0 for n in kernels.launches.values())
 
 

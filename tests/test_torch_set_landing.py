@@ -115,9 +115,9 @@ def _run(backend):
     retired = []
     flush_device = teng._flush_device
 
-    def capture(snap, dirty=None):
+    def capture(snap, *args, **kw):
         retired.append(snap[3].registers.clone())
-        return flush_device(snap, dirty=dirty)
+        return flush_device(snap, *args, **kw)
 
     teng._flush_device = capture
     bulk = [f"bulk.s.{i}" for i in range(BULK_KEYS)]

@@ -7,6 +7,12 @@ double-buffered interval flush, with every TPU kernel on that path
 replaced by a CUDA kernel written for Hopper (`csrc/`, bound in
 `kernels/`). The package imports torch and numpy only.
 
-Entry point: `models.pipeline.AggregationEngine(config, device=None)`;
-the device defaults to "cuda", and tests pass device="cpu".
+Entry points: `server.Server(config, device=None)` (the local-tier
+server: DogStatsD listeners, the interval flush loop, sinks, the ops
+HTTP listener; `python -m veneur_tpu_torch.cli.veneur -f config.yaml`
+runs it) and `models.pipeline.AggregationEngine(config, device=None)`.
+The device defaults to "cuda"; `aggregation_backend: cpu` or
+device="cpu" runs on the CPU, as the tests do.
 """
+
+__version__ = "0.1.0"

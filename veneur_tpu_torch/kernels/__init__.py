@@ -4,7 +4,9 @@ Each wrapper (compress.fused_compress, hll_stats.hll_stats,
 ull_insert.fused_insert, probe.probe_add) takes torch tensors. On a
 CUDA tensor it checks device, dtype, shape and
 contiguity, launches its kernel on the current stream and adds one to
-its entry in `launches` — or raises; there is no fallback. On a CPU
+its entry in `launches` (through `count_launch`, under a lock: the
+server launches from worker and flusher threads) — or raises; there is
+no fallback. On a CPU
 tensor it runs the kernel's plain torch version and counts nothing.
 
 The sources live in `veneur_tpu_torch/csrc/` and are built on first use
@@ -23,20 +25,32 @@ The checks stay, each a plain attribute test.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import _build
 
-# launches of each kernel since the last reset (plain integers)
+# launches of each kernel since the last reset (plain integers, written
+# only under _launch_lock)
 launches = {"compress": 0, "hll_stats": 0, "ull_insert": 0, "probe": 0}
+_launch_lock = threading.Lock()
 
 # the loaded library with its bound C entries, after the first launch
 _lib = None
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launch_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to kernel `name`'s count; called by its wrapper right
+    after the launch, and nowhere else."""
+    with _launch_lock:
+        launches[name] += 1
 
 
 def lib():

@@ -11,7 +11,7 @@ import functools
 
 import torch
 
-from . import launch_error, launches, lib, require_cuda, stream_handle
+from . import count_launch, launch_error, lib, require_cuda, stream_handle
 from ..ops.tdigest import compress_plain
 
 __all__ = ["fused_compress", "compress_plain"]
@@ -70,5 +70,5 @@ def fused_compress(mean, weight, buf_value, buf_weight, compression: float):
         K, C, B, float(compression), dev, stream_handle(dev))
     if err:
         raise launch_error("fused_compress", err)
-    launches["compress"] += 1
+    count_launch("compress")
     return out_mean, out_weight

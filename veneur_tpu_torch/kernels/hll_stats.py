@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from . import launch_error, launches, lib, require_cuda, stream_handle
+from . import count_launch, launch_error, lib, require_cuda, stream_handle
 
 
 def hll_stats_plain(registers):
@@ -36,5 +36,5 @@ def hll_stats(registers):
                              zsum.data_ptr(), K, m, dev, stream_handle(dev))
     if err:
         raise launch_error("hll_stats", err)
-    launches["hll_stats"] += 1
+    count_launch("hll_stats")
     return ez, zsum

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from . import launch_error, launches, lib, require_cuda, stream_handle
+from . import count_launch, launch_error, lib, require_cuda, stream_handle
 
 SHAPE = (8, 128)
 
@@ -37,7 +37,7 @@ def probe_add(x):
                          stream_handle(dev))
     if err:
         raise launch_error("probe", err)
-    launches["probe"] += 1
+    count_launch("probe")
     return out
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from . import launch_error, launches, lib, require_cuda, stream_handle
+from . import count_launch, launch_error, lib, require_cuda, stream_handle
 from ..sketches.ull import _insert_impl, check_flat_range
 
 
@@ -45,5 +45,5 @@ def fused_insert(bank, slots, reg_idx, vals):
                               stream_handle(dev))
     if err:
         raise launch_error("fused_insert", err)
-    launches["ull_insert"] += 1
+    count_launch("ull_insert")
     return bank

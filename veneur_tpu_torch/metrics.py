@@ -1,5 +1,6 @@
 """Core metric value types of the flush (the port's copy of
-veneur_tpu.metrics: MetricType, InterMetric and MetricFrame).
+veneur_tpu.metrics: MetricType, InterMetric, MetricFrame, FrameSet and
+SampleBatchStats).
 
 Parity: samplers/samplers.go (sym: InterMetric, MetricScope) — the flushed
 representation handed to sinks.
@@ -115,3 +116,41 @@ class MetricFrame:
         """The raw (names, tags, values[n, m], types) blocks — the
         frame-native sink serialization surface."""
         return self._blocks
+
+
+class FrameSet:
+    """One flush's complete output: the engines' columnar frames plus
+    loose InterMetrics (status checks, self-telemetry). This is what the
+    server hands to sinks. Frame-native sinks serialize straight from the
+    blocks; legacy sinks iterate, which materializes InterMetric objects
+    lazily in the SINK's thread (off the flush critical path) and caches
+    them once for all such sinks."""
+
+    __slots__ = ("frames", "extra")
+
+    def __init__(self, frames=None, extra=None):
+        self.frames = frames or []
+        self.extra = extra or []
+
+    def __len__(self) -> int:
+        return sum(len(f) for f in self.frames) + len(self.extra)
+
+    def __iter__(self):
+        for f in self.frames:
+            yield from f
+        yield from self.extra
+
+    def to_list(self) -> list[InterMetric]:
+        out = []
+        for f in self.frames:
+            out.extend(f.to_list())
+        out.extend(self.extra)
+        return out
+
+
+@dataclass
+class SampleBatchStats:
+    """Per-flush ingest bookkeeping, reported as veneur.* self-metrics."""
+    samples: int = 0
+    dropped_no_slot: int = 0
+    parse_errors: int = 0

@@ -55,7 +55,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import sketches
+from .. import kernels, sketches
 from ..ingest.parser import UDPMetric
 from ..kernels import probe as kprobe
 from ..metrics import InterMetric, MetricFrame, MetricType
@@ -412,6 +412,8 @@ class AggregationEngine:
         # StatusCheck sampler state: last check per (name, tags) per
         # interval, flushed as status-typed InterMetrics
         self._status: dict = {}
+        # events of the interval, handed to the server's sinks as they are
+        self._pending_events: list = []
 
     def _bank_sizes(self):
         cfg = self.cfg
@@ -433,6 +435,18 @@ class AggregationEngine:
         """The wire stamp of this engine's sketch pair (identical strings
         to the JAX package's)."""
         return sketches.engine_stamp(self._heng, self._seng)
+
+    def engines_describe(self) -> dict:
+        """JSON-ready sketch-engine description (/debug/flush): the JAX
+        package's dict, with where the kernels run ("cuda", or "plain"
+        for their plain versions on the CPU) and the process's launch
+        counts in place of its kernel arms."""
+        d = sketches.describe(self._heng, self._seng)
+        d["kernels"] = {
+            "route": "cuda" if self.device.type == "cuda" else "plain",
+            "launches": dict(kernels.launches),
+        }
+        return d
 
     # ---------------- ingest ----------------
 
@@ -481,11 +495,22 @@ class AggregationEngine:
             if st.full():
                 self._dispatch_sets()
 
+    def process_event(self, ev):
+        with self.lock:
+            self._pending_events.append(ev)
+
     def process_service_check(self, sc):
         """Aggregate one service check: last write wins per (name, tags)
         within the interval (samplers.go sym: StatusCheck.Sample)."""
         with self.lock:
             self._status[(sc.name, tuple(sc.tags))] = sc
+
+    def drain_events(self):
+        """The events received since the last call, and no service
+        checks: those flush as status rows (the JAX package's pair)."""
+        with self.lock:
+            evs, self._pending_events = self._pending_events, []
+        return evs, []
 
     # ---- pre-interned batch ingest: slots come from the caller's own
     # lookups on the engine's interners; slot -1 rows are padding.
@@ -699,28 +724,47 @@ class AggregationEngine:
             self._dirty = [np.zeros_like(d) for d in retired]
         return retired
 
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _fetch(self, out: dict) -> dict:
         """The flush's one device-to-host transfer, then the host half of
         the set estimate (ULL's ML solve; nothing for HLL). Every fetch
         of flush outputs — full, compact and the baseline rows — goes
         through here, so all three carry the same keys."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         host = {k: v.cpu().numpy() for k, v in out.items()}
         self._seng.estimate_finalize(host)
         return host
 
-    def _flush_device(self, snap, dirty=None) -> dict:
+    def _timed_fetch(self, out, t0, t1, phases) -> dict:
+        """Fetch the flush body's outputs, stamping the JAX package's
+        sync-mode phases: device.dispatch (t0-t1, the body's host calls),
+        device.exec (until the card is done) and device.fetch."""
+        self._sync()
+        t2 = time.monotonic_ns()
+        host = self._fetch(out)
+        t3 = time.monotonic_ns()
+        phases.append(("device.dispatch", t0, t1))
+        phases.append(("device.exec", t1, t2))
+        phases.append(("device.fetch", t2, t3))
+        return host
+
+    def _flush_device(self, snap, phases, dirty=None) -> dict:
         """Run the flush body on the retired banks and fetch the host
-        arrays. With the retired dirty bitmaps (and incremental flush
-        on), only the touched rows run, unless the histogram bank's
-        dirty fraction is above the threshold."""
+        arrays, appending the phase stamps to `phases`. With the retired
+        dirty bitmaps (and incremental flush on), only the touched rows
+        run, unless the histogram bank's dirty fraction is above the
+        threshold."""
         if dirty is not None and self._use_incremental:
-            host = self._flush_device_incremental(snap, dirty)
+            host = self._flush_device_incremental(snap, phases, dirty)
             if host is not None:
                 return host
         self._last_flush_info = {"path": "full"}
-        return self._fetch(self._program(*snap, self._qs))
+        t0 = time.monotonic_ns()
+        out = self._program(*snap, self._qs)
+        return self._timed_fetch(out, t0, time.monotonic_ns(), phases)
 
     def _flush_baseline_rows(self) -> dict:
         """Per-output-key row of an EMPTY flush — what every cold row
@@ -735,12 +779,14 @@ class AggregationEngine:
                                     if v.ndim}
         return self._flush_baseline
 
-    def _flush_device_incremental(self, snap, dirty):
+    def _flush_device_incremental(self, snap, phases, dirty):
         """Gather only the dirty rows into a [D, ·] work set, run the
         flush body over it, and overlay the results on the baseline rows
         on host. None when the histogram bank's dirty fraction exceeds
         flush_incremental_threshold (the caller then flushes every
-        row)."""
+        row). Phases: `gather` (dirty ids, the baseline rows, the row
+        gather), the device phases, `scatter` (the host overlay)."""
+        t0 = time.monotonic_ns()
         ids = [np.nonzero(d)[0] for d in dirty]
         if ids[0].size > (self.cfg.flush_incremental_threshold
                           * dirty[0].size):
@@ -753,14 +799,22 @@ class AggregationEngine:
         }
         if all(i.size == 0 for i in ids):
             # an idle interval: every output is the baseline
-            return self._scatter_host({}, ids, dirty, base)
+            host = self._scatter_host({}, ids, dirty, base)
+            phases.append(("gather", t0, time.monotonic_ns()))
+            return host
         idx = [torch.as_tensor(pad_dirty_ids(i, d.size), device=self.device)
                for d, i in zip(dirty, ids)]
         self._last_flush_info["buckets"] = [int(p.numel()) for p in idx]
         work = [type(bank)(*(leaf.index_select(0, ix) for leaf in bank))
                 for bank, ix in zip(snap, idx)]
-        host_c = self._fetch(self._program(*work, self._qs))
-        return self._scatter_host(host_c, ids, dirty, base)
+        t1 = time.monotonic_ns()
+        phases.append(("gather", t0, t1))
+        out = self._program(*work, self._qs)
+        host_c = self._timed_fetch(out, t1, time.monotonic_ns(), phases)
+        t4 = time.monotonic_ns()
+        host = self._scatter_host(host_c, ids, dirty, base)
+        phases.append(("scatter", t4, time.monotonic_ns()))
+        return host
 
     @staticmethod
     def _scatter_host(host_c, ids, dirty, base) -> dict:
@@ -853,8 +907,13 @@ class AggregationEngine:
             active, status, samples, dropped, histo_key_count = \
                 self._flush_bookkeeping()
         t_swap = time.monotonic_ns()
+        # flight-recorder stamps (name, t0_ns, t1_ns) on the monotonic_ns
+        # clock, returned in stats["phases"] for the server's phase tree
+        phases = [("swap", t_start, t_swap)]
         snap = self._land_retired(snap, dirty, stages, set_landing)
-        host = self._flush_device(snap, dirty=dirty)
+        t_drain = time.monotonic_ns()
+        phases.append(("drain", t_swap, t_drain))
+        host = self._flush_device(snap, phases, dirty=dirty)
         t_device = time.monotonic_ns()
 
         frame = MetricFrame(ts, cfg.hostname)
@@ -871,6 +930,7 @@ class AggregationEngine:
                 hostname=sc.hostname or cfg.hostname)
             for sc in status.values()]
         t_end = time.monotonic_ns()
+        phases.append(("materialize", t_device, t_end))
         stats = {
             "samples": samples,
             "histo_keys": histo_key_count,
@@ -880,6 +940,7 @@ class AggregationEngine:
             "swap_ns": t_swap - t_start,
             "merge_ns": t_device - t_swap,
             "assembly_ns": t_end - t_device,
+            "phases": phases,
             "flush_path": dict(self._last_flush_info),
         }
         return FlushResult(frame=frame, stats=stats,

@@ -125,6 +125,22 @@ def set_engine_for_id(engine_id: str, precision: int):
     raise ValueError(f"unknown set engine {engine_id!r}")
 
 
+def describe(heng, seng) -> dict:
+    """JSON-ready engine description for /debug/flush (the same dict as
+    the JAX package's)."""
+    return {
+        "stamp": engine_stamp(heng, seng),
+        "histogram": {"id": heng.id, "wire_version": heng.wire_version,
+                      "params": {k: getattr(heng, k)
+                                 for k in heng.__dataclass_fields__},
+                      "error_contract": heng.error_contract},
+        "set": {"id": seng.id, "wire_version": seng.wire_version,
+                "params": {k: getattr(seng, k)
+                           for k in seng.__dataclass_fields__},
+                "error_contract": seng.error_contract},
+    }
+
+
 def merge_registers(engine_id: str, a, b):
     """Host-side register union under the payload's engine semantics
     (max for HLL, lattice join for ULL)."""

@@ -23,6 +23,7 @@ class HLLEngine:
 
     id = "hll"
     wire_version = 1
+    error_contract = "relative stderr ~1.04/sqrt(m) (LogLog-Beta)"
 
     def init(self, num_slots: int, device):
         return hll.init(num_slots, self.precision, device=device)

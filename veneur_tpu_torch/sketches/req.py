@@ -280,6 +280,9 @@ class REQEngine:
 
     id = "req"
     wire_version = 1
+    error_contract = ("~1% relative value error at p99.9 (protected "
+                      "tail items are exact samples); mid-range "
+                      "distribution-dependent; exact count/sum/min/max")
 
     def init(self, num_slots: int, device):
         return init(num_slots, self.levels, self.capacity, device=device)

@@ -23,6 +23,8 @@ class TDigestEngine:
 
     id = "tdigest"
     wire_version = 1
+    error_contract = ("absolute rank error ~1/compression per cluster "
+                      "(k1 tail-dense); exact count/sum/min/max")
 
     def init(self, num_slots: int, device):
         return tdigest.init(num_slots, self.compression, self.buffer_depth,

@@ -228,6 +228,8 @@ class ULLEngine:
 
     id = "ull"
     wire_version = 1
+    error_contract = ("ML estimation, relative stderr ~0.85% at "
+                      "p=13 (8 KiB/slot — half the HLL p=14 bank)")
 
     @property
     def num_registers(self) -> int:
