@@ -87,14 +87,46 @@ the run:
                left. Printed: the UDP ingest rate (datagrams/s and
                lines/s, from the first send to drain() returning) and
                S1's and S2's flush times from their
-               veneur.flush.*_duration_ns rows. Then the daemon itself:
-               `python3 -m veneur_tpu_torch.cli.veneur -f <yaml>` in a
-               subprocess on the card (interval 1 s, a UDP listener, a
-               flush_file) takes one burst of datagrams, writes every
-               counter sample to its flush file, and exits 0 on SIGTERM.
+               veneur.flush.*_duration_ns rows, with the garbage
+               collector's pauses in each flush_once. Then the daemon
+               itself: `python3 -m veneur_tpu_torch.cli.veneur -f <yaml>`
+               in a subprocess on the card (interval 1 s, a UDP
+               listener, a flush_file) takes one burst of datagrams,
+               writes every counter sample to its flush file, and exits 0
+               on SIGTERM.
+  8. ssf+overload  the port's Server at the same defaults with SSF
+               listeners over UDP and TCP (so it traces its own flushes
+               through its SSF UDP port), indicator_span_timer_name, the
+               overload defense at 8192 keys a prefix, the profiler
+               trigger, a UDP statsd listener, the HTTP listener and a
+               capture sink. Interval T1, paced so nothing drops: 10000
+               spans over UDP, each with a timing (5000 keys), a count
+               (2000), a set member (200) and a gauge (1000), every
+               tenth an indicator span; 1000 framed spans over TCP on
+               keys of their own and one status sample; a garbage SSF
+               datagram; the `app` tenant (2000 counters x 4, 500 timers
+               x 10) and a storm of 50000 unique `storm.` counter keys
+               over DogStatsD; one span and one line sent by `python3 -m
+               veneur_tpu_torch.cli.emit`. /debug/flush/profile is
+               requested, then drain() and flush_once(); then T2, which
+               carries only T1's self-traced spans. Checked: every span
+               counted and one SSF error, no drop; the SSF rows, the
+               indicator timer and the tenant against numpy truth (phase
+               5's contract), the status row; the storm minting exactly
+               8192 keys and `storm.__other__` holding the exact folded
+               count, which veneur.overload.folded_samples_total
+               reports; received == applied + counted degraded samples;
+               the adaptive rate at 1.0; /debug/flush naming the storm
+               prefix over budget; T2 holding only veneur.* rows and a
+               positive span count; the profile trace naming
+               compress_kernel; the launches of each step equal
+               SSF_LAUNCHES; stop() within 10 s, no thread left.
+               Printed: spans/s and samples/s over UDP and TCP, the
+               storm's datagrams/s, T1's and T2's flush times with the
+               overload phase and the collector's pauses.
 
 Then it prints one JSON line describing every kernel (its launches are
-those of phases 5 and 7, the main paths), the card's name and power
+those of phases 5, 7 and 8, the main paths), the card's name and power
 limit as nvidia-smi reports them, and, last, the device line
 {"ok": true, "device": {...}}. Without a card, or without the package
 beside it, it exits non-zero and prints no result.
@@ -109,6 +141,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import types
@@ -1541,9 +1574,13 @@ def phase_server(device, cfg_kw=None, plan=None):
         out["datagrams_per_s"] = len(dgrams) / secs
         out["lines_per_s"] = len(lines) / secs
         flushes = []
+        gc_ms = {}
         for n, label in ((1, "S1"), (2, "S2")):
             check(srv.drain(timeout=120), "drain() timed out")
-            counted(label, lambda n=n: srv.flush_once(timestamp=2000 + n))
+            with GcPauses() as gcp:
+                counted(label,
+                        lambda n=n: srv.flush_once(timestamp=2000 + n))
+            gc_ms[label] = gcp.ms
             check(cap.wait_for_flush(n, timeout=120),
                   f"{label}: the sink got no flush")
             for t in list(srv._sink_inflight.values()):
@@ -1555,6 +1592,7 @@ def phase_server(device, cfg_kw=None, plan=None):
                 for k in ("total_duration_ns", "swap_duration_ns",
                           "merge_duration_ns", "assembly_duration_ns")}
             out[label]["rows"] = len(rows)
+            out[label]["gc_ms"] = gc_ms[label]
         s1, s2 = flushes
         want_packets = {"veneur.packet.received_total": len(dgrams),
                         "veneur.packet.error_total": 1,
@@ -1690,6 +1728,403 @@ def phase_server_cli(device, cfg_kw=None):
     return out
 
 
+# ------------------------------------------------------------- phase 8
+
+# interval T1's traffic: SSF spans over UDP, each carrying a timing, a
+# count of 1, a set member and a gauge on its family's keys (timing,
+# counter, set, gauge key counts), every `indicator_every`-th an
+# indicator span; framed spans over TCP on keys of their own, the first
+# with one status sample more; the `app` tenant over DogStatsD UDP
+# (counter keys x samples, timer keys x samples) and the `storm` of
+# unique counter keys, one sample each
+SSF_PLAN = {"udp_spans": 10000, "udp_keys": (5000, 2000, 200, 1000),
+            "tcp_spans": 1000, "tcp_keys": (500, 200, 50, 100),
+            "indicator_every": 10, "app_counters": (2000, 4),
+            "app_timers": (500, 10), "storm": 50000, "budget": 8192}
+
+# phase 8's launches, predicted from the code before its first run
+# (PERF.md section 6): the probe at the one engine's construction; at
+# ingest compress twice: the indicator timer is one key taking every
+# eleventh histogram sample of the UDP spans, so the first histogram
+# batch of 8192 holds 745 of its samples and the second 355 (the UDP
+# remainder and the TCP spans' 100), both over the buffer depth of 256:
+# each batch lands through the hot-slot sidestep, one whole-bank
+# compress; the third, partial batch lands at T1's flush without one.
+# In T1's flush compress and hll_stats twice (the empty flush's baseline
+# rows, computed at the first incremental flush, and the work set); in
+# T2's once each (T1's phase timers); ull_insert never
+SSF_LAUNCHES = {
+    "construction": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                     "probe": 1},
+    "ingest": {"compress": 2, "hll_stats": 0, "ull_insert": 0, "probe": 0},
+    "T1": {"compress": 2, "hll_stats": 2, "ull_insert": 0, "probe": 0},
+    "T2": {"compress": 1, "hll_stats": 1, "ull_insert": 0, "probe": 0},
+}
+
+SSF_INDICATOR = "ssf.indicator"
+
+
+def ssf_spans(rng, n, keys, prefix, every, t0_ns, truth):
+    """n SSF spans of service `chip`, each with a timing (lognormal ms),
+    a count of 1, a set member and a gauge on the `prefix` families'
+    keys, every `every`-th an indicator span; their samples added to
+    `truth` as the values the wire carries (an SSF sample's value is a
+    float32)."""
+    from veneur_tpu_torch import ssf
+    from veneur_tpu_torch.ssf.protos import ssf_pb2
+    nt, nc, ns, ng = keys
+    spans = []
+    lat = rng.lognormal(3, 1, n)
+    temp = rng.normal(50, 10, n)
+    dur = rng.integers(1_000, 5_000_000, n)
+    kt, kc = rng.integers(0, nt, n), rng.integers(0, nc, n)
+    ks, kg = rng.integers(0, ns, n), rng.integers(0, ng, n)
+    members = rng.integers(0, 500, n)
+    for i in range(n):
+        start = t0_ns + i * 1000
+        span = ssf_pb2.SSFSpan(
+            version=0, trace_id=i + 1, id=i + 1, name=f"{prefix}.op",
+            service="chip", start_timestamp=start,
+            end_timestamp=start + int(dur[i]),
+            indicator=(i % every == 0))
+        span.metrics.extend([
+            ssf.timing(f"{prefix}_lat.{kt[i]}", lat[i] / 1e3,
+                       ssf.MILLISECOND),
+            ssf.count(f"{prefix}_hits.{kc[i]}", 1.0),
+            ssf.set_sample(f"{prefix}_users.{ks[i]}", f"u{members[i]}"),
+            ssf.gauge(f"{prefix}_temp.{kg[i]}", temp[i])])
+        t, c, s, g = span.metrics
+        truth.histo.setdefault((t.name, ()), []).append(np.float32(t.value))
+        truth.counter[(c.name, ())] = truth.counter.get((c.name, ()),
+                                                        0.0) + 1.0
+        truth.sets.setdefault((s.name, ()), set()).add(s.message)
+        truth.gauge[(g.name, ())] = float(np.float32(g.value))
+        if span.indicator:
+            truth.histo.setdefault(
+                (SSF_INDICATOR, ("error:false", "service:chip")),
+                []).append(np.float32(int(dur[i]) / 1e6))
+        spans.append(span)
+    return spans
+
+
+SKB_COST = 2048
+
+
+def send_spans_paced(srv, payloads, send, what):
+    """Send each payload with `send`, in bursts of at most a quarter of
+    the SSF UDP socket's receive buffer, each followed by a wait until
+    the server has counted every span sent and its span and worker
+    queues are under half full. A datagram is charged its length plus
+    SKB_COST: the kernel charges a socket each datagram's whole buffer,
+    which for a span of a few hundred bytes is several times its
+    length."""
+    rcvbuf = srv._ssf_udp_sock.getsockopt(socket.SOL_SOCKET,
+                                          socket.SO_RCVBUF)
+    budget = max(4 * 4096, rcvbuf // 4)
+    base = srv.spans_received
+    sent = 0
+
+    def settled():
+        return (srv.spans_received - base >= sent
+                and srv.span_queue.qsize() < srv.span_queue.maxsize // 2
+                and all(q.qsize() < q.maxsize // 2
+                        for q in srv.worker_queues))
+
+    i = 0
+    while i < len(payloads):
+        burst = 0
+        while i < len(payloads) and (
+                burst == 0 or burst + len(payloads[i]) + SKB_COST <= budget):
+            send(payloads[i])
+            burst += len(payloads[i]) + SKB_COST
+            i += 1
+        sent = i
+        wait_until(settled, 120, f"{sent} {what} spans received")
+
+
+def emit(args):
+    """One run of `python3 -m veneur_tpu_torch.cli.emit` with `args`."""
+    subprocess.run([sys.executable, "-m", "veneur_tpu_torch.cli.emit",
+                    *args], cwd=ROOT, check=True, timeout=120,
+                   stdout=subprocess.DEVNULL)
+
+
+def tick_phase_ms(srv, tick_id, name):
+    """Milliseconds of the top-level phase `name` of flush tick
+    `tick_id`, from the flight recorder."""
+    for t in srv.flight.debug_state()["ticks"]:
+        if t["tick_id"] == tick_id:
+            for p in t["phases"]:
+                if p["name"] == name and p["parent"] == -1:
+                    return (p["end_ns"] - p["start_ns"]) / 1e6
+    raise AssertionError(f"tick {tick_id} has no {name} phase")
+
+
+def phase_ssf_overload(device, cfg_kw=None, plan=None):
+    """The port's Server with SSF listeners (UDP and TCP), self-tracing,
+    the overload defense and the profiler trigger on `device`: T1 over
+    real sockets (paced), drained and flushed under a profiler capture,
+    then T2 with only T1's self-traced spans; rows against numpy truth,
+    the storm's fold against the budget, the accounting identity, the
+    HTTP state, the trace file, the launches against SSF_LAUNCHES (on
+    the card), and a clean stop. `cfg_kw` and `plan` override the widths
+    and the traffic (CPU rehearsals at small shapes)."""
+    import tempfile
+    from veneur_tpu_torch import kernels
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ingest.parser import parse_packet
+    from veneur_tpu_torch.metrics import MetricType
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.basic import CaptureMetricSink
+    from veneur_tpu_torch.ssf import framing
+    plan = plan or SSF_PLAN
+    rng = np.random.default_rng(23)
+    every = plan["indicator_every"]
+    ssf_truth, app_truth = Truth(), Truth()
+    t0_ns = time.time_ns()
+    udp = ssf_spans(rng, plan["udp_spans"], plan["udp_keys"], "ssfu",
+                    every, t0_ns, ssf_truth)
+    tcp = ssf_spans(rng, plan["tcp_spans"], plan["tcp_keys"], "ssft",
+                    every, t0_ns, ssf_truth)
+    from veneur_tpu_torch import ssf
+    tcp[0].metrics.append(ssf.status("ssft_check.db", 2, message="down"))
+    udp_dgrams = [s.SerializeToString() for s in udp]
+    tcp_frames = [framing.write_ssf(s) for s in tcp]
+    nc, per_c = plan["app_counters"]
+    nt, per_t = plan["app_timers"]
+    app = [f"app.hits.{i}:{v}|c" for i in range(nc)
+           for v in rng.integers(1, 100, per_c)]
+    app += [f"app.lat.{i}:{v:.4f}|ms" for i in range(nt)
+            for v in rng.lognormal(3, 1, per_t)]
+    app = [app[i].encode() for i in rng.permutation(len(app))]
+    for ln in app:
+        app_truth.add_parsed(parse_packet(ln))
+    storm = [f"storm.u{k}:1|c".encode() for k in range(plan["storm"])]
+    budget = plan["budget"]
+    samples_sent = (4 * (len(udp) + len(tcp)) + len(app) + len(storm)
+                    + sum(s.indicator for s in udp + tcp) + 2)
+    out = {"udp_spans": len(udp), "tcp_spans": len(tcp),
+           "app_lines": len(app), "storm_keys": len(storm)}
+    profile_dir = tempfile.mkdtemp(prefix="veneur-profile-")
+    cfg = Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                 ssf_listen_addresses=["udp://127.0.0.1:0",
+                                       "tcp://127.0.0.1:0"],
+                 http_address=f"127.0.0.1:{free_port(socket.SOCK_STREAM)}",
+                 interval="3600s", hostname="chip",
+                 indicator_span_timer_name=SSF_INDICATOR,
+                 overload_defense_enabled=True,
+                 overload_max_keys_per_prefix=budget,
+                 debug_flush_profile=True,
+                 debug_flush_profile_dir=profile_dir, **(cfg_kw or {}))
+    cap = CaptureMetricSink()
+    launches = {}
+
+    def counted(label, fn):
+        before = dict(kernels.launches)
+        res = fn()
+        launches[label] = {k: n - before[k]
+                           for k, n in kernels.launches.items()}
+        return res
+
+    kernels.reset_launches()
+    srv = counted("construction",
+                  lambda: Server(cfg, sinks=[cap], device=device))
+    threads_before = set(threading.enumerate())
+    try:
+        srv.start()
+        check(srv.trace_client is not None, "no self-tracing client")
+        ssf_port = srv._ssf_udp_sock.getsockname()[1]
+        tcp_port = srv._listen_socks[0].getsockname()[1]
+        statsd = ("127.0.0.1", srv.bound_port())
+
+        def ingest():
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+                t = time.perf_counter()
+                send_spans_paced(
+                    srv, udp_dgrams,
+                    lambda d: sock.sendto(d, ("127.0.0.1", ssf_port)),
+                    "UDP")
+                check(srv.drain(timeout=120), "drain() timed out")
+                out["udp_s"] = time.perf_counter() - t
+                with socket.create_connection(("127.0.0.1", tcp_port),
+                                              timeout=30) as conn:
+                    t = time.perf_counter()
+                    send_spans_paced(srv, tcp_frames, conn.sendall, "TCP")
+                    check(srv.drain(timeout=120), "drain() timed out")
+                    out["tcp_s"] = time.perf_counter() - t
+                sock.sendto(b"garbage\xff", ("127.0.0.1", ssf_port))
+                wait_until(lambda: srv.ssf_errors >= 1, 30,
+                           "the garbage datagram")
+                app_dg = pack_datagrams(app, cfg.metric_max_length)
+                send_paced(srv, app_dg)
+                storm_dg = pack_datagrams(storm, cfg.metric_max_length)
+                t = time.perf_counter()
+                send_paced(srv, storm_dg)
+                check(srv.drain(timeout=120), "drain() timed out")
+                out["storm_s"] = time.perf_counter() - t
+            out["statsd_datagrams"] = len(app_dg) + len(storm_dg) + 1
+            out["storm_datagrams"] = len(storm_dg)
+            emit(["-hostport", f"udp://127.0.0.1:{ssf_port}", "-ssf",
+                  "-name", "chip_emit.span", "-count", "1"])
+            emit(["-hostport", f"udp://{statsd[0]}:{statsd[1]}",
+                  "-name", "chip_emit.line", "-count", "1"])
+            wait_until(lambda: srv.spans_received >= len(udp) + len(tcp) + 1
+                       and srv.packets_received >= out["statsd_datagrams"],
+                       60, "the emitted span and line")
+            check(srv.drain(timeout=120), "drain() timed out")
+
+        counted("ingest", ingest)
+        n_ind = sum(s.indicator for s in udp)
+        out["udp_spans_per_s"] = len(udp) / out["udp_s"]
+        out["udp_samples_per_s"] = (4 * len(udp) + n_ind) / out["udp_s"]
+        n_ind_t = sum(s.indicator for s in tcp)
+        out["tcp_spans_per_s"] = len(tcp) / out["tcp_s"]
+        out["tcp_samples_per_s"] = (4 * len(tcp) + n_ind_t + 1) / out["tcp_s"]
+        out["storm_datagrams_per_s"] = out["storm_datagrams"] / out["storm_s"]
+        http = srv.http_api.port
+        code, body = http_get(http, "/debug/flush/profile")
+        check(code == 200 and json.loads(body)["capture_ticks"] == 1,
+              f"/debug/flush/profile: {code} {body!r}")
+        flushes, gc_ms = [], {}
+        for n, label in ((1, "T1"), (2, "T2")):
+            if n == 2:
+                # T1's self-traced spans reach the SSF listener after
+                # T1's flush; T2 must count them
+                wait_until(lambda: srv.spans_received > 0, 30,
+                           "T1's self-traced spans")
+            check(srv.drain(timeout=120), "drain() timed out")
+            with GcPauses() as gcp:
+                counted(label,
+                        lambda n=n: srv.flush_once(timestamp=3000 + n))
+            gc_ms[label] = gcp.ms
+            check(cap.wait_for_flush(n, timeout=120),
+                  f"{label}: the sink got no flush")
+            for t in list(srv._sink_inflight.values()):
+                t.join(120)
+            rows = {(m.name, tuple(m.tags)): m for m in cap.flushes[n - 1]}
+            flushes.append(rows)
+            out[label] = {
+                k.split(".")[-1]: rows[(f"veneur.flush.{k}", ())].value / 1e6
+                for k in ("total_duration_ns", "swap_duration_ns",
+                          "merge_duration_ns", "assembly_duration_ns")}
+            out[label]["overload_phase_ms"] = tick_phase_ms(srv, n, "overload")
+            out[label]["gc_ms"] = gc_ms[label]
+            out[label]["rows"] = len(rows)
+        t1, t2 = flushes
+
+        def self_row(name, rows=t1):
+            return rows[(f"veneur.{name}", ())].value
+
+        n_spans = len(udp) + len(tcp) + 1
+        check(self_row("ssf.received_total") == n_spans,
+              f"T1 spans received {self_row('ssf.received_total')}, "
+              f"sent {n_spans}")
+        check(self_row("ssf.error_total") == 1,
+              f"T1 ssf errors {self_row('ssf.error_total')}, expected 1")
+        check(self_row("worker.dropped_total") == 0,
+              "T1: a span or worker queue dropped")
+        check(self_row("packet.received_total") == out["statsd_datagrams"],
+              "T1: statsd datagrams lost")
+        # the SSF rows against their truth
+        fams = ("ssfu_", "ssft_", SSF_INDICATOR + ".", SSF_INDICATOR)
+        data = [m for m in t1.values() if m.name.startswith(fams)
+                and m.type != MetricType.STATUS]
+        eng = srv.engines[0]
+        out["worst_ssf"] = check_against_truth(
+            types.SimpleNamespace(metrics=data, frame=data), ssf_truth,
+            eng, "T1 ssf")
+        ind = t1[(SSF_INDICATOR + ".count", ("error:false", "service:chip"))]
+        check(ind.value == n_ind + n_ind_t,
+              f"indicator timer count {ind.value}, spans {n_ind + n_ind_t}")
+        status = t1.get(("ssft_check.db", ()))
+        check(status is not None and status.type == MetricType.STATUS
+              and status.value == 2.0, f"the status sample's row: {status}")
+        check(t1[("chip_emit.span", ())].value == 1.0
+              and t1[("chip_emit.line", ())].value == 1.0,
+              "the emitted span's and line's counters")
+        # the tenant against its no-storm truth
+        data = [m for m in t1.values() if m.name.startswith("app.")]
+        out["worst_app"] = check_against_truth(
+            types.SimpleNamespace(metrics=data, frame=data), app_truth,
+            eng, "T1 app")
+        # the storm: the budget's keys plus one fold key
+        storm_rows = {k: m for k, m in t1.items()
+                      if k[0].startswith("storm.")}
+        other = storm_rows.pop(("storm.__other__", ()), None)
+        check(len(storm_rows) == budget and all(
+            m.value == 1.0 for m in storm_rows.values()),
+            f"storm: {len(storm_rows)} keys minted, budget {budget}")
+        minted = sum(1 for e in srv.engines for k in e.counter_keys._map
+                     if k.name.startswith("storm."))
+        check(minted == budget + 1,
+              f"storm: {minted} counter slots, expected {budget + 1}")
+        folded = len(storm) - budget
+        check(other is not None and other.value == folded
+              and other.tags == [],
+              f"storm.__other__: {other and other.value}, folded {folded}")
+        check(self_row("overload.folded_samples_total") == folded,
+              f"folded_samples_total {self_row('overload.folded_samples_total')}"
+              f" != {folded}")
+        check(self_row("overload.keys_over_budget_total") > 0,
+              "no key over budget counted")
+        # received == applied + counted_degraded
+        applied = self_row("samples.processed_total")
+        degraded = (self_row("overload.fold_sampled_out_total")
+                    + self_row("overload.shed_packets_total")
+                    + self_row("worker.dropped_total")
+                    + self_row("packet.error_total"))
+        check(samples_sent == applied + degraded,
+              f"accounting: sent {samples_sent}, applied {applied}, "
+              f"degraded {degraded}")
+        check(self_row("samples.dropped_no_slot_total") == 0,
+              "T1: samples dropped for want of a slot")
+        check(self_row("overload.adaptive_sample_rate") == 1.0
+              and self_row("overload.shed_packets_total") == 0,
+              "the governor shed packets")
+        out["folded"] = folded
+        out["samples_sent"] = samples_sent
+        code, body = http_get(http, "/debug/flush")
+        adm = json.loads(body)["admission"]
+        rows_by = {r["prefix"]: r for r in adm["prefixes"]}
+        check(code == 200 and rows_by.get("storm", {}).get("over_budget")
+              and rows_by["storm"]["admitted"] == budget,
+              f"/debug/flush admission: {rows_by.get('storm')}")
+        out["storm_estimated_keys"] = rows_by["storm"]["estimated_keys"]
+        # T2: only veneur.* rows, and T1's self-traced spans counted
+        check(all(k[0].startswith("veneur.") for k in t2),
+              "T2 carried rows other than veneur.*: " + str(sorted(
+                  k for k in t2 if not k[0].startswith("veneur."))[:5]))
+        out["T2_spans_received"] = self_row("ssf.received_total", t2)
+        check(out["T2_spans_received"] > 0, "T2 counted no span")
+        # the profile capture of T1's flush
+        traces = [f for f in os.listdir(profile_dir) if f.endswith(".json")]
+        check(len(traces) == 1, f"profile traces: {traces}")
+        with open(os.path.join(profile_dir, traces[0])) as f:
+            text = f.read()
+        out["profile_trace_bytes"] = len(text)
+        out["profile_names_compress"] = "compress_kernel" in text
+        if device.type == "cuda":
+            check(out["profile_names_compress"],
+                  "the profile trace does not name compress_kernel")
+    finally:
+        t0 = time.monotonic()
+        srv.stop()
+        out["stop_s"] = time.monotonic() - t0
+    check(out["stop_s"] < 10.0, f"stop() took {out['stop_s']:.1f} s")
+    alive = [t.name for t in set(threading.enumerate()) - threads_before
+             if t.is_alive()]
+    check(not alive, f"threads alive after stop(): {alive}")
+    out["launches_by_step"] = launches
+    out["launches"] = {k: sum(step[k] for step in launches.values())
+                       for k in kernels.launches}
+    print(f"ssf+overload launches: {json.dumps(launches)}")
+    if device.type == "cuda":
+        check(launches == SSF_LAUNCHES,
+              f"ssf+overload launches {launches}, predicted {SSF_LAUNCHES}")
+    print(f"ssf+overload: {json.dumps(out)}")
+    return out
+
+
 # ------------------------------------------------------------- main
 
 # (name, source, the TPU kernel it replaces, the phase holding it
@@ -1741,6 +2176,7 @@ def main() -> int:
     report["timing"] = ph.run("timing", phase_timing, device)
     server = ph.run("server", phase_server, device)
     cli = ph.run("server cli", phase_server_cli, device)
+    ssf_out = ph.run("ssf+overload", phase_ssf_overload, device)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}",
               file=sys.stderr)
@@ -1813,13 +2249,38 @@ def main() -> int:
               f"{f['total_duration_ns']:.2f} ms, swap "
               f"{f['swap_duration_ns']:.2f} ms, merge "
               f"{f['merge_duration_ns']:.2f} ms, assembly "
-              f"{f['assembly_duration_ns']:.2f} ms, {f['rows']} rows, "
+              f"{f['assembly_duration_ns']:.2f} ms, gc in flush_once "
+              f"{f['gc_ms']:.2f} ms, {f['rows']} rows, "
               f"kernel launches {server['launches_by_step'][label]} | {card}")
     print(f"server cli: python3 -m veneur_tpu_torch.cli.veneur serving "
           f"{cli['start_s']:.2f} s after its start; {cli['datagrams']} "
           f"datagrams flushed to its flush_file; exit {cli['exit_code']} on "
           f"SIGTERM | {card}")
-    paths = [*main_out.values(), server]
+    s8 = ssf_out
+    for proto in ("udp", "tcp"):
+        print(f"timing ssf {proto.upper()} ingest: {s8[proto + '_spans']} "
+              f"spans from the first send to drain() returning in "
+              f"{s8[proto + '_s']:.3f} s: {s8[proto + '_spans_per_s']:.0f} "
+              f"spans/s, {s8[proto + '_samples_per_s']:.0f} samples/s "
+              f"(paced) | {card}")
+    print(f"timing ssf+overload storm: {s8['storm_keys']} unique counter "
+          f"keys in {s8['storm_datagrams']} datagrams in "
+          f"{s8['storm_s']:.3f} s: {s8['storm_datagrams_per_s']:.0f} "
+          f"datagrams/s; {s8['folded']} samples folded into "
+          f"storm.__other__ | {card}")
+    for label in ("T1", "T2"):
+        f = s8[label]
+        print(f"timing ssf+overload flush {label}: total "
+              f"{f['total_duration_ns']:.2f} ms, swap "
+              f"{f['swap_duration_ns']:.2f} ms, merge "
+              f"{f['merge_duration_ns']:.2f} ms, assembly "
+              f"{f['assembly_duration_ns']:.2f} ms, overload phase "
+              f"{f['overload_phase_ms']:.4f} ms, gc in flush_once "
+              f"{f['gc_ms']:.2f} ms, {f['rows']} rows, kernel launches "
+              f"{s8['launches_by_step'][label]}"
+              f"{' (under the profiler capture)' if label == 'T1' else ''}"
+              f" | {card}")
+    paths = [*main_out.values(), server, ssf_out]
     kernels = []
     for name, source, replaces, phase, timed in KERNELS:
         t = timing[timed]

@@ -1,4 +1,4 @@
-"""chip_smoke.py's phases 4-7 rehearsed on the CPU at small shapes.
+"""chip_smoke.py's phases 4-8 rehearsed on the CPU at small shapes.
 
 On the CPU every kernel wrapper runs its plain version, so these show
 that the script's cases, checks, timings and reports run end to end and
@@ -89,7 +89,8 @@ def test_phase_server_rehearsal():
         assert out[label]["total_duration_ns"] > 0
         assert set(out[label]) == {"total_duration_ns", "swap_duration_ns",
                                    "merge_duration_ns",
-                                   "assembly_duration_ns", "rows"}
+                                   "assembly_duration_ns", "rows", "gc_ms"}
+        assert out[label]["gc_ms"] >= 0
     assert set(cs.ENGINE_PHASES) <= set(out["tick1_phases"])
     assert out["health"] == "ok" and out["stop_s"] < 10
     # the wrappers run their plain versions here and count nothing
@@ -105,3 +106,50 @@ def test_phase_server_cli_rehearsal():
         "tpu_gauge_slots": 128, "tpu_set_slots": 64, "tpu_batch_size": 256})
     assert out["exit_code"] == 0 and out["datagrams"] >= 2
     assert out["start_s"] > 0
+
+
+SSF_PLAN = {"udp_spans": 1000, "udp_keys": (200, 100, 20, 50),
+            "tcp_spans": 100, "tcp_keys": (50, 20, 10, 10),
+            "indicator_every": 10, "app_counters": (100, 4),
+            "app_timers": (50, 10), "storm": 2000, "budget": 256}
+
+
+def test_phase_ssf_overload_rehearsal():
+    """Phase 8 at small widths and traffic: the port's Server on the CPU
+    with SSF over UDP and TCP, self-tracing, the overload defense and a
+    profiler capture of T1's flush; rows against numpy truth, the storm's
+    fold against the budget, the accounting identity and a clean stop
+    (the launch check and compress_kernel in the trace: on the card)."""
+    cfg_kw = {"tpu_histogram_slots": 1024, "tpu_counter_slots": 1024,
+              "tpu_gauge_slots": 256, "tpu_set_slots": 64,
+              "tpu_batch_size": 256}
+    out = cs.phase_ssf_overload(CPU, cfg_kw=cfg_kw, plan=SSF_PLAN)
+    assert (out["udp_spans"], out["tcp_spans"]) == (1000, 100)
+    assert out["folded"] == 2000 - 256
+    assert out["samples_sent"] == (4 * 1100 + 110 + 900 + 2000 + 2)
+    for k in ("udp_spans_per_s", "udp_samples_per_s", "tcp_spans_per_s",
+              "tcp_samples_per_s", "storm_datagrams_per_s"):
+        assert out[k] > 0, k
+    for label in ("T1", "T2"):
+        assert set(out[label]) == {
+            "total_duration_ns", "swap_duration_ns", "merge_duration_ns",
+            "assembly_duration_ns", "overload_phase_ms", "gc_ms", "rows"}
+        assert out[label]["overload_phase_ms"] > 0
+    assert out["T2_spans_received"] > 0
+    assert out["profile_trace_bytes"] > 0 and out["stop_s"] < 10
+    # the wrappers run their plain versions here and count nothing
+    assert all(n == 0 for n in out["launches"].values())
+    assert set(out["launches_by_step"]) == set(cs.SSF_LAUNCHES)
+
+
+def test_ssf_launch_table_is_whole():
+    """Every step of phase 8's table names every kernel, as phase 7's
+    does, and the kernels line's launches sum phases 5, 7 and 8."""
+    names = {k[0] for k in cs.KERNELS}
+    for table in (cs.SERVER_LAUNCHES, cs.SSF_LAUNCHES):
+        assert list(table)[:2] == ["construction", "ingest"]
+        assert len(table) == 4
+        assert all(set(step) == names for step in table.values())
+    assert sum(s["probe"] for s in cs.SSF_LAUNCHES.values()) == 1
+    assert sum(s["ull_insert"] for s in cs.SSF_LAUNCHES.values()) == 0
+    assert cs.SSF_LAUNCHES["ingest"]["compress"] == 2

@@ -5,8 +5,6 @@ and fleet views."""
 
 import dataclasses
 
-import pytest
-
 from veneur_tpu import observe as jobs
 from veneur_tpu_torch import observe as tobs
 
@@ -101,10 +99,32 @@ def test_recorder_records_the_same_phase_trees():
     assert ttrees[0][2] == 1
 
 
+class _Spans:
+    def __init__(self):
+        self.spans = []
+
+    def record(self, span):
+        self.spans.append(span)
+        return True
+
+
 def test_emit_spans_with_a_client_is_not_ported():
-    fr, _ = _feed_recorder(tobs)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        fr.emit_spans(fr.last_tick(), object())
+    """Ported since: with a client, emit_spans replays the last tick as
+    the reference's span tree (names and parents; the fixed-edge phases'
+    durations)."""
+    trees = []
+    for obs in (jobs, tobs):
+        fr, _ = _feed_recorder(obs)
+        tick, client = fr.last_tick(), _Spans()
+        n = fr.emit_spans(tick, client)
+        assert n == len(client.spans) > 1
+        ids = {sp.id: i for i, sp in enumerate(client.spans)}
+        trees.append([(sp.name, ids.get(sp.parent_id),
+                       sp.end_timestamp - sp.start_timestamp
+                       if sp.name.endswith(("swap", "exec", "telemetry"))
+                       else None)
+                      for sp in client.spans[1:]])
+    assert trees[1] == trees[0]
 
 
 def test_timer_samples_are_the_references():

@@ -8,9 +8,11 @@ replaced by a CUDA kernel written for Hopper (`csrc/`, bound in
 `kernels/`). The package imports torch and numpy only.
 
 Entry points: `server.Server(config, device=None)` (the local-tier
-server: DogStatsD listeners, the interval flush loop, sinks, the ops
-HTTP listener; `python -m veneur_tpu_torch.cli.veneur -f config.yaml`
-runs it) and `models.pipeline.AggregationEngine(config, device=None)`.
+server: DogStatsD and SSF listeners, the overload defense, the interval
+flush loop, sinks, self-tracing, the ops HTTP listener; `python -m
+veneur_tpu_torch.cli.veneur -f config.yaml` runs it),
+`models.pipeline.AggregationEngine(config, device=None)`, and on the
+client side `trace` and `python -m veneur_tpu_torch.cli.emit`.
 The device defaults to "cuda"; `aggregation_backend: cpu` or
 device="cpu" runs on the CPU, as the tests do.
 """

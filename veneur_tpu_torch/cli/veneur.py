@@ -12,7 +12,6 @@ import argparse
 import logging
 import signal
 import sys
-import threading
 
 
 def main(argv=None):
@@ -35,6 +34,14 @@ def main(argv=None):
         print("config ok")
         return 0
 
+    # SIGINT and SIGTERM are taken by sigwait below, never by a handler:
+    # blocked here, before torch or the server starts a thread (threads
+    # inherit the mask), they stay pending for sigwait whichever thread
+    # the kernel hands them to. A Python handler runs only in the main
+    # thread, which a signal delivered to another thread does not wake
+    # from a blocking wait.
+    stop_signals = {signal.SIGINT, signal.SIGTERM}
+    signal.pthread_sigmask(signal.SIG_BLOCK, stop_signals)
     from ..server import Server
     srv = Server(cfg)
     srv.start()
@@ -42,16 +49,7 @@ def main(argv=None):
         "veneur-tpu-torch serving on %s: statsd=%s interval=%ss workers=%d",
         srv.device, cfg.statsd_listen_addresses, cfg.interval_seconds,
         cfg.num_workers)
-
-    stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        try:
-            signal.signal(sig, lambda *_: stop.set())
-        except ValueError:
-            # not the main thread (embedded/test use): rely on the
-            # caller to stop us instead of signals
-            break
-    stop.wait()
+    signal.sigwait(stop_signals)
     srv.stop()
     return 0
 

@@ -60,8 +60,7 @@ class Config:
     http_address: str = ""
     debug: bool = False
     enable_profiling: bool = False
-    profile_port: int = 9943           # profiler server port (refused by
-    #                                    the port's Server: ROADMAP 9b)
+    profile_port: int = 9943           # the torch.profiler capture port
     mutex_profile_fraction: int = 0    # accepted for YAML compat;
     block_profile_rate: int = 0        # Go-runtime-only, warned at start
     sentry_dsn: str = ""
@@ -251,7 +250,7 @@ class Config:
     # LOCAL-ONLY `veneur.flush.phase.*` timers, so the engine serves
     # percentiles of its own flush phases like any tenant metric.
     flush_phase_timers: bool = True
-    # On-demand jax.profiler capture around flush ticks, triggered via
+    # On-demand torch.profiler capture around flush ticks, triggered via
     # GET /debug/flush/profile?ticks=N. Off by default: a profiler
     # capture is a debug action an operator must opt into.
     debug_flush_profile: bool = False

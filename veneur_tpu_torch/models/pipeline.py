@@ -41,9 +41,9 @@ flush — bit-identical to flushing every row, because every op of the
 flush is row-local and a fresh row is a fixed point of the compress.
 
 This port is local-only so far: forwarding, the global tier's imports,
-checkpoints, admission control and the relayed-backend fetch modes are
-refused by EngineConfig (ROADMAP queue A names where each will be
-ported).
+checkpoints and the relayed-backend fetch modes are refused by
+EngineConfig (ROADMAP queue A names where each will be ported). The
+server's admission controller attaches through `attach_admission`.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ from ..kernels import probe as kprobe
 from ..metrics import InterMetric, MetricFrame, MetricType
 from ..ops import scalar
 from ..utils import hashing
-from .worker import KeyInterner
+from .worker import FOLD_SLOT, KeyInterner
 
 
 def _precluster_k1(v, w, n_points):
@@ -200,7 +200,7 @@ class EngineConfig:
         if self.forward_enabled:
             raise _not_ported("forward_enabled", "item 10, global tier")
         if self.is_global:
-            raise _not_ported("is_global", "item 8.3, import landing")
+            raise _not_ported("is_global", "item 10, global tier")
         if self.flush_fetch != "sync" or self.flush_fetch_f16:
             raise _not_ported(
                 f"flush_fetch={self.flush_fetch!r} "
@@ -397,6 +397,14 @@ class AggregationEngine:
         self._pres_bound = 4 * (cfg.histogram_slots + cfg.counter_slots
                                 + cfg.gauge_slots + cfg.set_slots)
         self.samples_processed = 0
+        # overload defense (ingest/admission.py), wired by
+        # attach_admission; forwarding is refused (item 10), so folds
+        # keep their samples' scope
+        self._fwd_out = cfg.forward_enabled and not cfg.is_global
+        self._adm = None
+        self._adm_index = 0
+        self._adm_n = 1
+        self._adm_reroute = None
         # Dirty-slot bitmaps per bank (histogram, counter, gauge, set),
         # marked at every landing and retired at the flush swap: at any
         # instant `fresh init + dirty rows` is exactly the live bank
@@ -450,6 +458,54 @@ class AggregationEngine:
 
     # ---------------- ingest ----------------
 
+    def attach_admission(self, adm, *, index: int = 0, n: int = 1,
+                         reroute=None):
+        """Wire the Server's admission controller into this engine's
+        slot minting (overload defense): each KeyInterner consults it
+        before allocating, and over-budget keys' samples re-stage onto
+        their prefix's `__other__` key via `_fold` instead of minting
+        a bank slot. A map-hit key never touches the controller, so
+        the steady-state ingest path is unchanged.
+
+        `index`/`n`/`reroute` single-home the fold keys in a
+        multi-worker server: a fold rewrite whose digest routes to a
+        DIFFERENT engine is handed back to the server's router
+        (`reroute`) instead of minting a local slot, so one flush
+        never emits the same `__other__` series from two engines."""
+        self._adm = adm
+        self._adm_index = index
+        self._adm_n = n
+        self._adm_reroute = reroute
+        for ki in (self.histo_keys, self.counter_keys,
+                   self.gauge_keys, self.set_keys):
+            ki.admission = adm
+
+    def _fold(self, interner, m: UDPMetric):
+        """Resolve an over-budget sample (lookup returned FOLD_SLOT)
+        into (fold-rewritten metric, slot), or (None, -1) when the
+        sample left this engine: sampled out (admission counts it —
+        and it must then not count as processed either, the accounting
+        identity `received == applied + counted_degraded` is exact),
+        re-routed to the fold key's home engine (counted as folded
+        here; the home engine processes it as an ordinary sample), or
+        refused by the full bank (the interner's dropped_no_slot
+        accounting, exactly like any over-full sample — NOT counted
+        as a fold)."""
+        fm = self._adm.fold_metric(m, self._fwd_out)
+        if fm is None:
+            self.samples_processed -= 1
+            return None, -1
+        if self._adm_n > 1 and fm.digest % self._adm_n != self._adm_index:
+            self.samples_processed -= 1      # the home engine counts it
+            self._adm.count_folded()
+            self._adm_reroute(fm)
+            return None, -1
+        slot = interner.lookup(fm.key, fm.scope)
+        if slot < 0:
+            return None, -1
+        self._adm.count_folded()
+        return fm, slot
+
     def process(self, m: UDPMetric):
         """Route one parsed sample to its bank's staging buffer — the
         Worker.ProcessMetric equivalent. Thread-safe against flush()."""
@@ -462,7 +518,11 @@ class AggregationEngine:
         if t in ("timer", "histogram"):
             slot = self.histo_keys.lookup(m.key, m.scope)
             if slot < 0:
-                return
+                if slot != FOLD_SLOT:
+                    return
+                m, slot = self._fold(self.histo_keys, m)
+                if m is None:
+                    return
             st = self._histo_stage
             st.put(slots=slot, values=m.value, weights=1.0 / m.sample_rate)
             if st.full():
@@ -470,7 +530,11 @@ class AggregationEngine:
         elif t == "counter":
             slot = self.counter_keys.lookup(m.key, m.scope)
             if slot < 0:
-                return
+                if slot != FOLD_SLOT:
+                    return
+                m, slot = self._fold(self.counter_keys, m)
+                if m is None:
+                    return
             st = self._counter_stage
             st.put(slots=slot, values=m.value, weights=1.0 / m.sample_rate)
             if st.full():
@@ -478,7 +542,11 @@ class AggregationEngine:
         elif t == "gauge":
             slot = self.gauge_keys.lookup(m.key, m.scope)
             if slot < 0:
-                return
+                if slot != FOLD_SLOT:
+                    return
+                m, slot = self._fold(self.gauge_keys, m)
+                if m is None:
+                    return
             st = self._gauge_stage
             self._gauge_seq += 1
             st.put(slots=slot, values=m.value, seqs=self._gauge_seq)
@@ -487,7 +555,11 @@ class AggregationEngine:
         elif t == "set":
             slot = self.set_keys.lookup(m.key, m.scope)
             if slot < 0:
-                return
+                if slot != FOLD_SLOT:
+                    return
+                m, slot = self._fold(self.set_keys, m)
+                if m is None:
+                    return
             h = hashing.set_member_hash(str(m.value))
             idx, val = self._seng.hash_update(h)
             st = self._set_stage

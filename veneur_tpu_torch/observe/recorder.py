@@ -1,6 +1,5 @@
 """Flight recorder: a bounded ring of per-flush-tick phase trees (the
-port's copy of veneur_tpu/observe/recorder.py; replaying a tick as SSF
-spans waits for the SSF pipeline, ROADMAP queue A item 9b).
+port's copy of veneur_tpu/observe/recorder.py).
 
 Every flush tick records where its milliseconds went — engine drain,
 XLA dispatch, device exec (bounded by block_until_ready), MetricFrame
@@ -35,14 +34,10 @@ record nothing — which is the correct attribution.
 from __future__ import annotations
 
 import contextvars
-import random
 import threading
 import time
 
-
-def _span_id(rng=random) -> int:
-    """A positive int63 span id (the reference's id space)."""
-    return rng.getrandbits(63) or 1
+from . import registry as _registry
 
 
 class _Scope:
@@ -143,6 +138,7 @@ class TickRecord:
         self.close_ns = 0
 
     def _reset(self, tick_id: int, ts: int):
+        from ..trace import _span_id   # shared int63 id space
         self.tick_id = tick_id
         self.ts = ts
         self.wall_start_ns = time.time_ns()
@@ -329,15 +325,49 @@ class FlightRecorder:
     def emit_spans(self, tick: TickRecord, client, *,
                    trace_id: int | None = None, parent_id: int = 0,
                    namer=None) -> int:
-        """Replay one tick as an SSF span tree through the trace client.
-        With no client (no SSF listener: the only case the port's Server
-        builds) nothing is sent; a client needs the SSF pipeline, which
-        is not ported yet."""
+        """Replay one tick as an SSF span tree through the trace
+        client (the server's own ingest path — flusher.go parity).
+        Returns the number of spans enqueued.
+
+        The root span uses the tick's OWN pinned identity (`trace_id`
+        defaults to tick.trace_id, root id is tick.span_id). A receiver
+        passes `trace_id`/`parent_id` to graft its tree under a remote
+        span, and `namer` to name the tree (defaults to the flush span
+        names)."""
         if client is None:
             return 0
-        from ..models.pipeline import _not_ported
-        raise _not_ported("SSF self-tracing (FlightRecorder.emit_spans)",
-                          "item 9b")
+        from ..ssf.protos import ssf_pb2
+        from ..trace import _span_id
+
+        if namer is None:
+            namer = _registry.flush_span_name
+        wall0 = tick.wall_start_ns
+        mono0 = tick.mono_start
+        trace_id = trace_id or tick.trace_id or _span_id()
+        root_id = tick.span_id or _span_id()
+        end = tick.mono_end or time.monotonic_ns()
+        root = ssf_pb2.SSFSpan(
+            version=0, trace_id=trace_id, id=root_id,
+            parent_id=parent_id,
+            name=namer(), service="veneur",
+            start_timestamp=wall0,
+            end_timestamp=wall0 + (end - mono0))
+        root.tags["tick_id"] = str(tick.tick_id)
+        sent = 1 if client.record(root) else 0
+        ids = {}
+        for i, (name, t0, t1, parent) in enumerate(tick.phases()):
+            if t1 == 0:
+                continue   # in-flight at emission; /debug/flush has it
+            sid = _span_id()
+            ids[i] = sid
+            span = ssf_pb2.SSFSpan(
+                version=0, trace_id=trace_id, id=sid,
+                parent_id=ids.get(parent, root_id),
+                name=namer(name), service="veneur",
+                start_timestamp=wall0 + (t0 - mono0),
+                end_timestamp=wall0 + (t1 - mono0))
+            sent += 1 if client.record(span) else 0
+        return sent
 
     def debug_state(self, limit: int | None = None) -> dict:
         return {"tick_count": self._tick_count,

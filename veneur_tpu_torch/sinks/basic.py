@@ -1,6 +1,5 @@
-"""The simple sinks: blackhole, debug, capture, localfile (the port's copy
-of veneur_tpu/sinks/basic.py; span sinks wait for the SSF pipeline,
-ROADMAP queue A item 9b).
+"""The simple sinks: blackhole (metrics and spans), debug, capture,
+localfile (the port's copy of veneur_tpu/sinks/basic.py).
 
 Parity: sinks/blackhole/ (discard, for tests/benchmarks), sinks/debug/
 (log flushed values), plugins/localfile/ (append TSV rows — the same TSV
@@ -13,7 +12,7 @@ import sys
 import threading
 
 from ..metrics import InterMetric
-from . import MetricSink, Plugin
+from . import MetricSink, Plugin, SpanSink
 
 
 class BlackholeMetricSink(MetricSink):
@@ -31,6 +30,17 @@ class BlackholeMetricSink(MetricSink):
         n = len(frames)
         self.flushed_total += n
         return n
+
+
+class BlackholeSpanSink(SpanSink):
+    def __init__(self):
+        self.ingested_total = 0
+
+    def name(self) -> str:
+        return "blackhole"
+
+    def ingest(self, span):
+        self.ingested_total += 1
 
 
 class DebugMetricSink(MetricSink):
