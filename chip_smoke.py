@@ -125,8 +125,39 @@ the run:
                storm's datagrams/s, T1's and T2's flush times with the
                overload phase and the collector's pauses.
 
+  9. global tier  port locals (EngineConfig(forward_enabled=True) at the
+               default widths) flush forward exports, wire.export_to_metrics
+               and a serialized forward_pb2.MetricList carry them as a
+               forwarder would, and a port global (EngineConfig(
+               is_global=True) at the defaults: 32768 histogram, 16384
+               counter, 16384 gauge and 4096 set slots, batch 8192) decodes
+               them (ParseFromString) and lands them with import_list, then
+               flushes. G1 (lossless codec): four locals, each with a shard of
+               20000 mixed timers x 25 samples, 5000 global-only counters x
+               4, 5000 global-only gauges, 1000 mixed sets x 1000 members
+               (local j's from j*500, a union of 2500), 100 local-only
+               timers; the hot key g.hot from those four and 600 small
+               locals (histogram_slots 64), 20000 samples each: its pile
+               takes both re-chunk arms (sorted_prefix 0, then C) in the
+               first landing. G2: the same with fresh samples and the q16
+               codec. G3: the locals touch a tenth of their counters and
+               sets and flush delta exports. G4: two req+ull locals (5000
+               timers x 25, 1000 sets x 1000) into a req+ull global (the
+               direct landing and the ULL row join). Checked: the global's
+               rows against numpy truth over the union (phase 5's
+               contract; counters exact, gauges the last import, each
+               set's registers the join of the exported rows), the locals'
+               frames (mixed timers aggregates only, local-only timers in
+               full and never exported), G3's exports holding exactly the
+               touched keys, both arms, and the launches of each step
+               equal GLOBAL_LAUNCHES. Printed: each local's flush (the
+               export build) and its export_to_metrics and serialization,
+               the global's decode plus import_list per 1000 metrics, each
+               import landing's cluster_rows and merge-and-compress ms
+               (CUDA events), and the global flushes.
+
 Then it prints one JSON line describing every kernel (its launches are
-those of phases 5, 7 and 8, the main paths), the card's name and power
+those of phases 5, 7, 8 and 9, the main paths), the card's name and power
 limit as nvidia-smi reports them, and, last, the device line
 {"ok": true, "device": {...}}. Without a card, or without the package
 beside it, it exits non-zero and prints no result.
@@ -2125,6 +2156,600 @@ def phase_ssf_overload(device, cfg_kw=None, plan=None):
     return out
 
 
+# ------------------------------------------------------------- phase 9
+
+# the global tier's traffic. G1 (lossless) and G2 (q16): `locals` port
+# locals, each with a shard of every mixed timer's samples, global-only
+# counters (samples a local) and gauges, mixed sets (keys, members a
+# local, offset between locals: local j sends members j*offset ...
+# j*offset + members - 1), local-only timers; the hot key `g.hot` from
+# those locals and `hot_senders` small locals, each with a shard of
+# `hot_samples`. G3: the same locals touch `touch` of their counter keys
+# and sets and flush a delta export. G4: `req_locals` req+ull locals
+# with their own timers and sets into a req+ull global.
+GLOBAL_PLAN = {"locals": 4, "timers": (20000, 25), "counters": (5000, 4),
+               "gauges": 5000, "sets": (1000, 1000, 500),
+               "local_timers": (100, 25), "hot_senders": 600,
+               "hot_samples": 20000, "touch": 0.1, "req_locals": 2,
+               "req_timers": (5000, 25), "req_sets": (1000, 1000, 500)}
+# the small locals' widths (every other setting at its default)
+HOT_SENDER_CFG = {"histogram_slots": 64, "counter_slots": 16,
+                  "gauge_slots": 16, "set_slots": 16}
+
+# phase 9's launches, predicted from the code before the first run
+# (PERF.md section 6). Locals (4 default-width + 600 small, kept for G2):
+# the probe at construction; the hot shard of 20000 samples lands through
+# the hot-slot sidestep, one compress; each flush is incremental, the
+# first one a compress and an hll_stats for the empty flush's baseline
+# rows and one each for the work set. The global stages 4 x 20001 + 600
+# = 80604 digests, so 9 landings fire at import (every 8192) and the
+# remainder lands in the flush; a landing at C = B = 256 is one compress
+# before the merge and one after. G3's flushes have no dirty histogram
+# row but run the 64-row work set for their counters and sets. G4's
+# locals land 1M set updates through the landing buffer of 131072: 7
+# inserts at ingest and 1 in the flush each; REQ and ULL launch no
+# compress or hll_stats, and the ULL import is the row join, not the
+# insert kernel.
+GLOBAL_LAUNCHES = {
+    "G1 locals": {"compress": 1812, "hll_stats": 1208, "ull_insert": 0,
+                  "probe": 604},
+    "G1 construction": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                        "probe": 1},
+    "G1 import": {"compress": 18, "hll_stats": 0, "ull_insert": 0,
+                  "probe": 0},
+    "G1 flush": {"compress": 4, "hll_stats": 2, "ull_insert": 0,
+                 "probe": 0},
+    "G2 locals": {"compress": 1208, "hll_stats": 604, "ull_insert": 0,
+                  "probe": 0},
+    "G2 import": {"compress": 18, "hll_stats": 0, "ull_insert": 0,
+                  "probe": 0},
+    "G2 flush": {"compress": 3, "hll_stats": 1, "ull_insert": 0,
+                 "probe": 0},
+    "G3 locals": {"compress": 4, "hll_stats": 4, "ull_insert": 0,
+                  "probe": 0},
+    "G3 import": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                  "probe": 0},
+    "G3 flush": {"compress": 1, "hll_stats": 1, "ull_insert": 0,
+                 "probe": 0},
+    "G4 construction": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                        "probe": 3},
+    "G4 locals": {"compress": 0, "hll_stats": 0, "ull_insert": 16,
+                  "probe": 0},
+    "G4 import": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                  "probe": 0},
+    "G4 flush": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                 "probe": 0},
+}
+
+
+def member_hashes(key_ids, members):
+    """64-bit member hashes (splitmix64 of key id << 32 | member): the
+    same member of the same set hashes alike on every local."""
+    z = ((np.asarray(key_ids, np.uint64) << np.uint64(32))
+         | np.asarray(members, np.uint64)) + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def _slots(interner, names, mtype, scope):
+    from veneur_tpu_torch.ingest.parser import MetricKey
+    return np.array([interner.lookup(MetricKey(n, mtype, ""), scope)
+                     for n in names], np.int32)
+
+
+def _ingest_sets(eng, slots, key_ids, members):
+    """Every (slot, member) of a [keys, members] plan through
+    ingest_set_batch, in batches of the engine's batch size."""
+    b = eng.cfg.batch_size
+    s = np.repeat(slots, members.shape[1])
+    idx, rho = eng._seng.host_hash_to_updates(
+        member_hashes(np.repeat(key_ids, members.shape[1]),
+                      members.reshape(-1)))
+    for i in range(0, len(s), b):
+        eng.ingest_set_batch(s[i:i + b], idx[i:i + b], rho[i:i + b],
+                             count=len(s[i:i + b]))
+
+
+def global_interval(rng, plan, j, hot):
+    """Local j's share of one interval of G1/G2: the arrays it ingests."""
+    per = plan["timers"][1]
+    cols = np.array_split(np.arange(per), plan["locals"])[j]
+    nc, cper = plan["counters"]
+    ns, members, offset = plan["sets"]
+    nl, lper = plan["local_timers"]
+    return {
+        "timer_cols": cols,
+        "counters": rng.integers(1, 100, (nc, cper)).astype(np.float32),
+        "gauges": rng.normal(0, 100, plan["gauges"]).astype(np.float32),
+        "set_members": np.broadcast_to(
+            np.arange(members) + j * offset, (ns, members)),
+        "local_timers": rng.lognormal(2, 1, (nl, lper)).astype(np.float32),
+        "hot": hot,
+    }
+
+
+def feed_global_local(eng, d, timers):
+    """One default-width local's interval through the batch entry points:
+    its shard of the mixed timers `g.t*`, the local-only timers `g.l*`,
+    the global-only counters `g.c*` and gauges `g.g*`, the mixed sets
+    `g.s*` and its hot shard (one batch: the hot-slot sidestep)."""
+    from veneur_tpu_torch.ingest.parser import (GLOBAL_ONLY, LOCAL_ONLY,
+                                                MIXED_SCOPE)
+    b = eng.cfg.batch_size
+    nt = timers.shape[0]
+    cols = d["timer_cols"]
+    ts = np.repeat(_slots(eng.histo_keys, [f"g.t{i}" for i in range(nt)],
+                          "timer", MIXED_SCOPE), len(cols))
+    _feed_histos(eng, ts, timers[:, cols].reshape(-1), b)
+    lt = d["local_timers"]
+    ls = np.repeat(_slots(eng.histo_keys,
+                          [f"g.l{i}" for i in range(len(lt))], "timer",
+                          LOCAL_ONLY), lt.shape[1])
+    _feed_histos(eng, ls, lt.reshape(-1), b)
+    c = d["counters"]
+    cs = np.tile(_slots(eng.counter_keys, [f"g.c{i}" for i in range(len(c))],
+                        "counter", GLOBAL_ONLY), c.shape[1])
+    flat = c.T.reshape(-1)
+    for i in range(0, len(cs), b):
+        eng.ingest_counter_batch(cs[i:i + b], flat[i:i + b],
+                                 np.ones(len(cs[i:i + b]), np.float32))
+    g = d["gauges"]
+    eng.ingest_gauge_batch(
+        _slots(eng.gauge_keys, [f"g.g{i}" for i in range(len(g))], "gauge",
+               GLOBAL_ONLY), g)
+    m = d["set_members"]
+    _ingest_sets(eng, _slots(eng.set_keys, [f"g.s{i}" for i in range(len(m))],
+                             "set", MIXED_SCOPE), np.arange(len(m)), m)
+    feed_hot(eng, d["hot"])
+
+
+def feed_hot(eng, v):
+    from veneur_tpu_torch.ingest.parser import MIXED_SCOPE
+    slot = _slots(eng.histo_keys, ["g.hot"], "timer", MIXED_SCOPE)[0]
+    eng.ingest_histo_batch(np.full(len(v), slot, np.int32), v,
+                           np.ones(len(v), np.float32), count=len(v))
+
+
+class LandingProbe:
+    """Times each import landing of a global engine's digests: its
+    cluster_rows calls and the merge-and-compress rest after the last of
+    them (CUDA events on the card, the host clock on the CPU), with the
+    arms (sorted_prefix) it ran, its digests and its compress launches.
+    Keeps the set bank the last set landing returned (`set_bank`: the
+    interval's bank, retired by the flush, with every row landed)."""
+
+    def __init__(self, eng, device):
+        from veneur_tpu_torch import kernels
+        from veneur_tpu_torch.ops import tdigest
+        self.records = []
+        self._eng, self._device = eng, device
+        self._kernels, self._td = kernels, tdigest
+        self._real_cluster = tdigest.cluster_rows
+        self._cur = None
+        self.set_bank = None
+
+    def __enter__(self):
+        self._td.cluster_rows = self._cluster
+        self._real_land = self._eng._land_import_centroids
+        self._eng._land_import_centroids = self._land
+        self._real_sets = self._eng._land_import_sets
+        self._eng._land_import_sets = self._land_sets
+        return self
+
+    def __exit__(self, *exc):
+        self._td.cluster_rows = self._real_cluster
+        del self._eng._land_import_centroids
+        del self._eng._land_import_sets
+        return False
+
+    def _land_sets(self, bank, items, dirty):
+        bank = self._real_sets(bank, items, dirty)
+        if items:
+            self.set_bank = bank
+        return bank
+
+    def _mark(self):
+        import torch
+        if self._device.type != "cuda":
+            return time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def _ms(self, a, b):
+        if self._device.type != "cuda":
+            return (b - a) * 1e3
+        return a.elapsed_time(b)
+
+    def _cluster(self, values, weights, *args, sorted_prefix=0, **kw):
+        t0 = self._mark()
+        out = self._real_cluster(values, weights, *args,
+                                 sorted_prefix=sorted_prefix, **kw)
+        if self._cur is not None:
+            self._cur["calls"].append((t0, self._mark(), sorted_prefix,
+                                       tuple(values.shape)))
+        return out
+
+    def _land(self, bank, items, dirty):
+        if not items:
+            return self._real_land(bank, items, dirty)
+        self._cur = rec = {"calls": []}
+        before = self._kernels.launches["compress"]
+        t0 = self._mark()
+        out = self._real_land(bank, items, dirty)
+        t1 = self._mark()
+        sync(self._device)
+        self._cur = None
+        calls = rec["calls"]
+        self.records.append({
+            "digests": len(items),
+            "arms": [c[2] for c in calls],
+            "shapes": [list(c[3]) for c in calls],
+            "cluster_rows_ms_each": [self._ms(a, b) for a, b, *_ in calls],
+            "cluster_rows_ms": sum(self._ms(a, b) for a, b, *_ in calls),
+            "merge_compress_ms": self._ms(calls[-1][1] if calls else t0,
+                                          t1),
+            "wall_ms": self._ms(t0, t1),
+            "compress": self._kernels.launches["compress"] - before})
+        return out
+
+
+def _serialize(res, codec):
+    """A local's flush result as a forwarder sends it: export_to_metrics,
+    then one serialized MetricList; with the milliseconds of each."""
+    from veneur_tpu_torch.cluster import wire
+    from veneur_tpu_torch.cluster.protos import forward_pb2
+    t0 = time.perf_counter()
+    metrics = wire.export_to_metrics(res.export, codec=codec)
+    t1 = time.perf_counter()
+    data = forward_pb2.MetricList(metrics=metrics).SerializeToString()
+    t2 = time.perf_counter()
+    return data, {"metrics": len(metrics), "bytes": len(data),
+                  "to_metrics_ms": (t1 - t0) * 1e3,
+                  "serialize_ms": (t2 - t1) * 1e3}
+
+
+def _import_all(glob, payloads, op0):
+    """Decode each payload and land it with import_list, as an import
+    server would; returns the metrics and the milliseconds of both."""
+    from veneur_tpu_torch.cluster.protos import forward_pb2
+    n = decode = apply = 0.0
+    for op, data in enumerate(payloads, start=op0):
+        t0 = time.perf_counter()
+        ml = forward_pb2.MetricList.FromString(data)
+        t1 = time.perf_counter()
+        rerouted, rejected = glob.import_list(op, ml.metrics)
+        t2 = time.perf_counter()
+        check(not rerouted and not rejected,
+              f"import op {op}: {len(rerouted)} rerouted, "
+              f"{len(rejected)} rejected ({rejected[:1]})")
+        n += len(ml.metrics)
+        decode += (t1 - t0) * 1e3
+        apply += (t2 - t1) * 1e3
+    return {"metrics": int(n), "decode_ms": decode, "import_list_ms": apply,
+            "ms_per_1000": (decode + apply) / max(n, 1) * 1e3}
+
+
+def _flush_record(res, ms, gc_ms):
+    st = res.stats
+    return {"wall_ms": ms, "swap_ms": st["swap_ns"] / 1e6,
+            "merge_ms": st["merge_ns"] / 1e6,
+            "assembly_ms": st["assembly_ns"] / 1e6, "gc_ms": gc_ms,
+            "rows": len(res.frame), "path": st["flush_path"]["path"],
+            "forward_kind": st["forward_kind"]}
+
+
+def timed_flush(eng, **kw):
+    with GcPauses() as gcp:
+        t0 = time.monotonic()
+        res = eng.flush(**kw)
+        ms = (time.monotonic() - t0) * 1e3
+    return res, _flush_record(res, ms, gcp.ms)
+
+
+def regs_of(eng, bank, names):
+    """The register rows of `names` in `bank`, on the host (the slots
+    read from the interner's table: a lookup would mark them touched)."""
+    slot = {k.name: s for k, s, *_ in eng.set_keys.all_items()}
+    return bank.registers[[slot[n] for n in names]].cpu().numpy()
+
+
+def check_local_frame(res, timers, d, label):
+    """A forwarding local's own rows: mixed timers (and the hot key)
+    their aggregates only, local-only timers in full, nothing global;
+    its export holds every mixed timer and the hot key, no local-only
+    timer, and every global-only counter and gauge and mixed set."""
+    rows = rows_of(res)
+    nt = timers.shape[0]
+    nl = len(d["local_timers"])
+    check(len(res.frame) == 3 * (nt + 1) + 6 * nl,
+          f"{label}: {len(res.frame)} local rows")
+    cols = d["timer_cols"]
+    for i in range(0, nt, 97):
+        v = timers[i, cols]
+        check(rows[(f"g.t{i}.count", ())].value == len(v)
+              and rows[(f"g.t{i}.max", ())].value == float(v.max()),
+              f"{label}: local aggregates of g.t{i}")
+        check((f"g.t{i}.50percentile", ()) not in rows,
+              f"{label}: g.t{i} flushed a local percentile")
+    for i in range(nl):
+        check((f"g.l{i}.50percentile", ()) in rows,
+              f"{label}: local-only g.l{i} not flushed in full")
+    names = [k.name for k, *_ in res.export.histograms]
+    check(len(names) == nt + 1 and "g.hot" in names
+          and not any(n.startswith("g.l") for n in names),
+          f"{label}: export histograms")
+    e = res.export
+    check(len(e.counters) == len(d["counters"])
+          and len(e.gauges) == len(d["gauges"])
+          and len(e.sets) == len(d["set_members"]),
+          f"{label}: export {len(e.counters)} counters, {len(e.gauges)} "
+          f"gauges, {len(e.sets)} sets")
+
+
+def check_global(res, glob, set_bank, timers, hot, counters, gauges,
+                 exported, members, label):
+    """The global's rows against numpy truth over the union: count, min
+    and max exact, percentiles under the histogram engine's contract
+    (check_percentiles), counters exact, gauges the last import; each
+    set's registers equal to the join of the exported rows and its
+    estimate under the set engine's contract (set_ok)."""
+    from veneur_tpu_torch import sketches
+    rows = rows_of(res)
+    worst = {"set_rel_err": 0.0}
+    keyed = [(f"g.t{i}", timers[i]) for i in range(timers.shape[0])]
+    if hot is not None:
+        keyed.append(("g.hot", hot))
+    for name, v in keyed:
+        check(rows[(name + ".count", ())].value == len(v)
+              and rows[(name + ".min", ())].value == float(v.min())
+              and rows[(name + ".max", ())].value == float(v.max()),
+              f"{label}: {name} count/min/max")
+        check_percentiles(rows, name, (), v, glob._heng, label, worst)
+    for name, total in counters.items():
+        check(rows[(name, ())].value == total,
+              f"{label}: counter {name} {rows[(name, ())].value} != {total}")
+    for name, value in gauges.items():
+        check(rows[(name, ())].value == value, f"{label}: gauge {name}")
+    names = list(exported)
+    got = regs_of(glob, set_bank, names)
+    for r, name in enumerate(names):
+        want = exported[name][0]
+        for regs in exported[name][1:]:
+            want = sketches.merge_registers(glob._seng.id, want, regs)
+        check(np.array_equal(got[r], want),
+              f"{label}: {name} registers are not the join of the exports")
+        est = rows[(name, ())].value
+        worst["set_rel_err"] = max(worst["set_rel_err"],
+                                   abs(est - members) / members)
+        check(set_ok(est, members, glob._seng),
+              f"{label}: set {name} {est} vs {members}")
+    n_rows = (6 * len(keyed) + len(counters) + len(gauges) + len(exported))
+    check(len(res.frame) == n_rows,
+          f"{label}: {len(res.frame)} global rows, expected {n_rows}: "
+          f"{sorted(rows)[:20]}")
+    return worst
+
+
+def phase_global(device, cfg_kw=None, plan=None, hot_cfg_kw=None):
+    """The global tier on `device`: port locals (forward_enabled) flush
+    their exports, `wire.export_to_metrics` and a serialized MetricList
+    carry them, and a port global (is_global) decodes and lands them with
+    import_list, then flushes; G1 lossless, G2 q16, G3 delta, G4 req+ull.
+    Rows against numpy truth, the locals' frames and exports, both arms
+    of the oversized-pile re-chunking, and the launches of each step
+    against GLOBAL_LAUNCHES (on the card). `cfg_kw`, `hot_cfg_kw` and
+    `plan` override the widths and the traffic (CPU rehearsals)."""
+    from veneur_tpu_torch import kernels
+    from veneur_tpu_torch.ingest.parser import GLOBAL_ONLY, MIXED_SCOPE
+    from veneur_tpu_torch.models.pipeline import (AggregationEngine,
+                                                  EngineConfig)
+    plan = plan or GLOBAL_PLAN
+    cfg_kw = cfg_kw or {}
+    hot_kw = {**HOT_SENDER_CFG, **(hot_cfg_kw or {})}
+    rng = np.random.default_rng(9)
+    launches, out = {}, {"steps": {}}
+
+    def counted(label, fn):
+        before = dict(kernels.launches)
+        r = fn()
+        launches[label] = {k: n - before[k]
+                           for k, n in kernels.launches.items()}
+        return r
+
+    def make(**kw):
+        return AggregationEngine(EngineConfig(**{**cfg_kw, **kw}),
+                                 device=device)
+
+    kernels.reset_launches()
+    n_loc, n_hot, hs = plan["locals"], plan["hot_senders"], plan["hot_samples"]
+    locs, small, glob = [], [], None
+
+    for label, codec in (("G1", "lossless"), ("G2", "q16")):
+        nt, per = plan["timers"]
+        timers = rng.lognormal(3, 1, (nt, per)).astype(np.float32)
+        hots = rng.lognormal(3, 1, (n_loc + n_hot, hs)).astype(np.float32)
+        shares = [global_interval(rng, plan, j, hots[j])
+                  for j in range(n_loc)]
+        rec = {"locals": [], "small_senders": {}}
+
+        def locals_step():
+            payloads = []
+            if not locs:
+                locs.extend(make(forward_enabled=True)
+                            for _ in range(n_loc))
+                small.extend(AggregationEngine(EngineConfig(
+                    forward_enabled=True, **hot_kw), device=device)
+                    for _ in range(n_hot))
+            t0 = time.perf_counter()
+            centroids = set()
+            for s, eng in enumerate(small):
+                feed_hot(eng, hots[n_loc + s])
+                res = eng.flush(timestamp=90)
+                check([k.name for k, *_ in res.export.histograms]
+                      == ["g.hot"], f"{label}: small sender {s} export")
+                centroids.add(len(res.export.histograms[0][1]))
+                payloads.append(_serialize(res, codec)[0])
+            rec["small_senders"] = {"n": n_hot,
+                                    "s": time.perf_counter() - t0,
+                                    "centroids": sorted(centroids)}
+            for j, eng in enumerate(locs):
+                t0 = time.perf_counter()
+                feed_global_local(eng, shares[j], timers)
+                ingest_s = time.perf_counter() - t0
+                res, frec = timed_flush(eng, timestamp=90)
+                check_local_frame(res, timers, shares[j],
+                                  f"{label} local {j}")
+                data, srec = _serialize(res, codec)
+                payloads.append(data)
+                rec["locals"].append({"ingest_s": ingest_s, **frec, **srec,
+                                      "exports": res.export})
+            return payloads
+
+        payloads = counted(f"{label} locals", locals_step)
+        exports = [r.pop("exports") for r in rec["locals"]]
+        if glob is None:
+            glob = counted("G1 construction",
+                           lambda: make(is_global=True))
+        with LandingProbe(glob, device) as probe:
+            rec["import"] = counted(f"{label} import",
+                                    lambda: _import_all(glob, payloads, 1))
+            at_import = len(probe.records)
+            res, rec["flush"] = counted(
+                f"{label} flush", lambda: timed_flush(glob, timestamp=91))
+        rec["landings"] = probe.records
+        rec["landings_at_import"] = at_import
+        arms = {a for r in probe.records for a in r["arms"]}
+        C = glob.histo_bank.num_centroids
+        check({0, C} <= arms, f"{label}: re-chunk arms {sorted(arms)}, "
+              f"expected both 0 and {C}")
+        counters = {f"g.c{i}": float(sum(d["counters"][i].astype(np.float64)
+                                         .sum() for d in shares))
+                    for i in range(plan["counters"][0])}
+        gauges = {f"g.g{i}": float(shares[-1]["gauges"][i])
+                  for i in range(plan["gauges"])}
+        ns, members, offset = plan["sets"]
+        exported = {f"g.s{i}": [] for i in range(ns)}
+        for e in exports:
+            for k, regs in e.sets:
+                exported[k.name].append(regs)
+        rec["worst"] = check_global(
+            res, glob, probe.set_bank, timers, hots.reshape(-1), counters,
+            gauges, exported, members + (n_loc - 1) * offset, label)
+        out["steps"][label] = rec
+
+    # G3: the locals touch a tenth of their counters and sets and flush a
+    # delta export: exactly the touched keys ship
+    nc = int(plan["counters"][0] * plan["touch"])
+    ns = int(plan["sets"][0] * plan["touch"])
+    members, offset = plan["sets"][1], plan["sets"][2]
+    rec = {"locals": []}
+
+    def delta_step():
+        payloads = []
+        for j, eng in enumerate(locs):
+            cs = _slots(eng.counter_keys, [f"g.c{i}" for i in range(nc)],
+                        "counter", GLOBAL_ONLY)
+            eng.ingest_counter_batch(cs, np.full(nc, j + 1, np.float32),
+                                     np.ones(nc, np.float32))
+            _ingest_sets(eng, _slots(eng.set_keys,
+                                     [f"g.s{i}" for i in range(ns)], "set",
+                                     MIXED_SCOPE), np.arange(ns),
+                         np.broadcast_to(np.arange(members) + 10 ** 6
+                                         + j * offset, (ns, members)))
+            res, frec = timed_flush(eng, timestamp=92, forward_kind="delta")
+            e = res.export
+            check(res.stats["forward_kind"] == "delta" == e.kind,
+                  f"G3 local {j}: forward kind {res.stats['forward_kind']}")
+            check([k.name for k, _v in e.counters]
+                  == [f"g.c{i}" for i in range(nc)]
+                  and [k.name for k, _r in e.sets]
+                  == [f"g.s{i}" for i in range(ns)]
+                  and not e.histograms and not e.gauges,
+                  f"G3 local {j}: delta export holds {len(e.counters)} "
+                  f"counters, {len(e.sets)} sets, {len(e.histograms)} "
+                  f"histograms, {len(e.gauges)} gauges")
+            data, srec = _serialize(res, "lossless")
+            payloads.append((data, e))
+            rec["locals"].append({**frec, **srec})
+        return payloads
+
+    sent = counted("G3 locals", delta_step)
+    with LandingProbe(glob, device) as probe:
+        rec["import"] = counted("G3 import", lambda: _import_all(
+            glob, [d for d, _e in sent], 100))
+        res, rec["flush"] = counted(
+            "G3 flush", lambda: timed_flush(glob, timestamp=93))
+    check(not probe.records, "G3: a delta without digests landed some")
+    exported = {f"g.s{i}": [e.sets[i][1] for _d, e in sent]
+                for i in range(ns)}
+    rec["worst"] = check_global(
+        res, glob, probe.set_bank, np.zeros((0, 1), np.float32), None,
+        {f"g.c{i}": float(n_loc * (n_loc + 1) // 2) for i in range(nc)},
+        {}, exported, members + (n_loc - 1) * offset, "G3")
+    out["steps"]["G3"] = rec
+
+    # G4: req+ull locals into a req+ull global: the direct landing and
+    # the ULL row join
+    pair = {"histogram_backend": "req", "set_backend": "ull"}
+    nr = plan["req_locals"]
+    nt, per = plan["req_timers"]
+    timers = rng.lognormal(3, 1, (nt, per)).astype(np.float32)
+    ns, members, offset = plan["req_sets"]
+    rec = {"locals": []}
+    rlocs = counted("G4 construction", lambda: [
+        make(forward_enabled=True, **pair) for _ in range(nr)]
+        + [make(is_global=True, **pair)])
+    rglob = rlocs.pop()
+
+    def req_step():
+        payloads, exports = [], []
+        for j, eng in enumerate(rlocs):
+            cols = np.array_split(np.arange(per), nr)[j]
+            ts = np.repeat(_slots(eng.histo_keys,
+                                  [f"g.t{i}" for i in range(nt)], "timer",
+                                  MIXED_SCOPE), len(cols))
+            _feed_histos(eng, ts, timers[:, cols].reshape(-1),
+                         eng.cfg.batch_size)
+            _ingest_sets(eng, _slots(eng.set_keys,
+                                     [f"g.s{i}" for i in range(ns)], "set",
+                                     MIXED_SCOPE), np.arange(ns),
+                         np.broadcast_to(np.arange(members) + j * offset,
+                                         (ns, members)))
+            res, frec = timed_flush(eng, timestamp=94)
+            data, srec = _serialize(res, "lossless")
+            payloads.append(data)
+            exports.append(res.export)
+            rec["locals"].append({**frec, **srec})
+        return payloads, exports
+
+    payloads, exports = counted("G4 locals", req_step)
+    with LandingProbe(rglob, device) as probe:
+        rec["import"] = counted("G4 import",
+                                lambda: _import_all(rglob, payloads, 1))
+        res, rec["flush"] = counted(
+            "G4 flush", lambda: timed_flush(rglob, timestamp=95))
+    rec["landings"] = probe.records
+    rec["landings_at_import"] = 0
+    exported = {f"g.s{i}": [e.sets[i][1] for e in exports]
+                for i in range(ns)}
+    rec["worst"] = check_global(res, rglob, probe.set_bank, timers, None,
+                                {}, {}, exported,
+                                members + (nr - 1) * offset, "G4")
+    out["steps"]["G4"] = rec
+
+    out["launches_by_step"] = launches
+    out["launches"] = {k: sum(step[k] for step in launches.values())
+                       for k in kernels.launches}
+    print(f"global launches: {json.dumps(launches)}")
+    if device.type == "cuda":
+        check(launches == GLOBAL_LAUNCHES,
+              f"global launches {launches}, predicted {GLOBAL_LAUNCHES}")
+    print(f"global: {json.dumps(out)}")
+    return out
+
+
 # ------------------------------------------------------------- main
 
 # (name, source, the TPU kernel it replaces, the phase holding it
@@ -2140,6 +2765,49 @@ KERNELS = (
     ("probe", "veneur_tpu_torch/csrc/probe.cu",
      "veneur_tpu/kernels/__init__.py:83", "build", "probe"),
 )
+
+
+def print_global_timings(g, card):
+    """Phase 9's times, a line each, with the card."""
+    for label, rec in g["steps"].items():
+        for j, loc in enumerate(rec["locals"]):
+            print(f"timing global {label} local {j}: flush (export build "
+                  f"included) {loc['wall_ms']:.2f} ms, swap "
+                  f"{loc['swap_ms']:.2f}, merge {loc['merge_ms']:.2f}, "
+                  f"assembly {loc['assembly_ms']:.2f}, gc "
+                  f"{loc['gc_ms']:.2f}; export_to_metrics "
+                  f"{loc['to_metrics_ms']:.2f} ms and serialization "
+                  f"{loc['serialize_ms']:.2f} ms for {loc['metrics']} "
+                  f"metrics, {loc['bytes']} bytes | {card}")
+        hot = rec.get("small_senders")
+        if hot:
+            print(f"timing global {label} small senders: {hot['n']} "
+                  f"ingested, flushed and serialized in {hot['s']:.3f} s; "
+                  f"centroids a digest {hot['centroids']} | {card}")
+        imp = rec["import"]
+        print(f"timing global {label} import: {imp['metrics']} metrics, "
+              f"decode {imp['decode_ms']:.2f} ms + import_list "
+              f"{imp['import_list_ms']:.2f} ms = {imp['ms_per_1000']:.3f} "
+              f"ms per 1000 metrics | {card}")
+        for i, land in enumerate(rec.get("landings", [])):
+            where = ("import" if i < rec["landings_at_import"]
+                     else "flush")
+            each = ", ".join(f"{ms:.2f}" for ms in
+                             land["cluster_rows_ms_each"])
+            how = (f"cluster_rows {land['cluster_rows_ms']:.2f} ms ({each}) "
+                   f"over {land['shapes']} (sorted_prefix {land['arms']}), "
+                   f"merge and compress {land['merge_compress_ms']:.2f} ms"
+                   if land["arms"] else "direct (no cluster_rows)")
+            print(f"timing global {label} landing {i} ({where}): "
+                  f"{land['digests']} digests, {how}, wall "
+                  f"{land['wall_ms']:.2f} ms, compress launches "
+                  f"{land['compress']} | {card}")
+        f = rec["flush"]
+        print(f"timing global {label} flush ({f['path']}): "
+              f"{f['wall_ms']:.2f} ms, swap {f['swap_ms']:.2f} ms, merge "
+              f"{f['merge_ms']:.2f} ms, assembly {f['assembly_ms']:.2f} ms, "
+              f"gc {f['gc_ms']:.2f} ms, {f['rows']} rows, kernel launches "
+              f"{g['launches_by_step'][label + ' flush']} | {card}")
 
 
 def main() -> int:
@@ -2177,6 +2845,7 @@ def main() -> int:
     server = ph.run("server", phase_server, device)
     cli = ph.run("server cli", phase_server_cli, device)
     ssf_out = ph.run("ssf+overload", phase_ssf_overload, device)
+    glob_out = ph.run("global tier", phase_global, device)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}",
               file=sys.stderr)
@@ -2280,7 +2949,8 @@ def main() -> int:
               f"{s8['launches_by_step'][label]}"
               f"{' (under the profiler capture)' if label == 'T1' else ''}"
               f" | {card}")
-    paths = [*main_out.values(), server, ssf_out]
+    print_global_timings(glob_out, card)
+    paths = [*main_out.values(), server, ssf_out, glob_out]
     kernels = []
     for name, source, replaces, phase, timed in KERNELS:
         t = timing[timed]

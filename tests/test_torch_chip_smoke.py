@@ -1,4 +1,4 @@
-"""chip_smoke.py's phases 4-8 rehearsed on the CPU at small shapes.
+"""chip_smoke.py's phases 4-9 rehearsed on the CPU at small shapes.
 
 On the CPU every kernel wrapper runs its plain version, so these show
 that the script's cases, checks, timings and reports run end to end and
@@ -153,3 +153,83 @@ def test_ssf_launch_table_is_whole():
     assert sum(s["probe"] for s in cs.SSF_LAUNCHES.values()) == 1
     assert sum(s["ull_insert"] for s in cs.SSF_LAUNCHES.values()) == 0
     assert cs.SSF_LAUNCHES["ingest"]["compress"] == 2
+
+
+GLOBAL_PLAN = {"locals": 4, "timers": (300, 25), "counters": (50, 4),
+               "gauges": 50, "sets": (10, 200, 100), "local_timers": (5, 25),
+               "hot_senders": 12, "hot_samples": 2000, "touch": 0.1,
+               "req_locals": 2, "req_timers": (100, 25),
+               "req_sets": (10, 200, 100)}
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Many small tensor ops: one intra-op thread, so the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_phase_global_rehearsal(monkeypatch, one_torch_thread):
+    """Phase 9 at small widths and traffic: port locals' exports over the
+    wire into a port global, G1-G4, rows against numpy truth. The import
+    cap sits at its floor (2C) so the small hot pile takes both re-chunk
+    arms, as the full plan's does at the real cap (the launch check: on
+    the card)."""
+    from veneur_tpu_torch.models import pipeline
+    monkeypatch.setattr(pipeline, "_IMPORT_W_CAP", 1)
+    cfg_kw = {"histogram_slots": 512, "counter_slots": 128,
+              "gauge_slots": 128, "set_slots": 32, "batch_size": 1024}
+    out = cs.phase_global(CPU, cfg_kw=cfg_kw, plan=GLOBAL_PLAN,
+                          hot_cfg_kw={"batch_size": 1024})
+    steps = out["steps"]
+    assert list(steps) == ["G1", "G2", "G3", "G4"]
+    for label in ("G1", "G2"):
+        rec = steps[label]
+        arms = {a for land in rec["landings"] for a in land["arms"]}
+        assert arms == {0, 256}
+        assert rec["import"]["metrics"] == 4 * (300 + 1 + 50 + 50 + 10) + 12
+        assert rec["flush"]["path"] == "incremental"
+        assert rec["worst"]["pct_err_over_spread"] <= 0.01 + 1e-6
+        assert rec["small_senders"]["n"] == 12
+        assert all(loc["metrics"] == 411 for loc in rec["locals"])
+    assert steps["G3"]["import"]["metrics"] == 4 * (5 + 1)
+    assert all(loc["forward_kind"] == "delta"
+               for loc in steps["G3"]["locals"])
+    assert steps["G4"]["landings"][0]["arms"] == []
+    cs.print_global_timings(out, "cpu")
+    # the wrappers run their plain versions here and count nothing
+    assert all(n == 0 for n in out["launches"].values())
+    assert set(out["launches_by_step"]) == set(cs.GLOBAL_LAUNCHES)
+
+
+def test_global_launch_table_follows_the_plan():
+    """Every step of phase 9's table names every kernel, and its counts
+    follow from GLOBAL_PLAN as PERF.md derives them: three compresses
+    and two hll_stats a sender in G1 (the hot-slot sidestep, the baseline
+    rows and the work set), two compresses a landing (every 8192 staged
+    digests at import, the remainder in the flush), 7 + 1 ull_insert
+    launches a req+ull local."""
+    from veneur_tpu_torch.models import pipeline
+    names = {k[0] for k in cs.KERNELS}
+    table = cs.GLOBAL_LAUNCHES
+    assert all(set(step) == names for step in table.values())
+    p = cs.GLOBAL_PLAN
+    senders = p["locals"] + p["hot_senders"]
+    assert table["G1 locals"] == {"compress": 3 * senders,
+                                  "hll_stats": 2 * senders,
+                                  "ull_insert": 0, "probe": senders}
+    assert table["G2 locals"] == {"compress": 2 * senders,
+                                  "hll_stats": senders, "ull_insert": 0,
+                                  "probe": 0}
+    digests = p["locals"] * (p["timers"][0] + 1) + p["hot_senders"]
+    landings = digests // pipeline._IMPORT_STAGE_DIGESTS
+    assert digests % pipeline._IMPORT_STAGE_DIGESTS
+    for label in ("G1", "G2"):
+        assert table[f"{label} import"]["compress"] == 2 * landings
+    assert table["G1 flush"]["compress"] == 2 + 2
+    assert table["G2 flush"]["compress"] == 2 + 1
+    assert table["G4 locals"]["ull_insert"] == 8 * p["req_locals"]
+    assert sum(s["probe"] for s in table.values()) == senders + 1 + 3

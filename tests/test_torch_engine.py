@@ -272,12 +272,32 @@ def test_bank_init_requires_a_device(module):
 
 
 @pytest.mark.parametrize("override", [
-    {"forward_enabled": True}, {"is_global": True},
     {"flush_fetch": "staged"}, {"flush_fetch_f16": True},
     {"flush_fetch": "host"}, {"flush_fetch": "async"}])
 def test_features_outside_the_slice_are_refused(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.EngineConfig(**override)
+
+
+@pytest.mark.parametrize("flag,server_key,value", [
+    ("forward_enabled", "forward_address", "http://127.0.0.1:1"),
+    ("is_global", "is_global", True)])
+def test_global_tier_flags_construct_and_the_server_refuses_them(
+        flag, server_key, value):
+    """The engine takes the global tier's flags since the engine and the
+    wire are ported; the server, which has no forwarder or import server
+    yet, still refuses the config key that would turn them on."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.server import Server
+    eng = tpipe.AggregationEngine(tpipe.EngineConfig(**CFG, **{flag: True}),
+                                  device="cpu")
+    assert getattr(eng.cfg, flag) is True
+    assert eng._fwd_out == (flag == "forward_enabled")
+    cfg = Config(aggregation_backend="cpu")
+    setattr(cfg, server_key, value)
+    with pytest.raises(NotImplementedError, match="item 10.2") as e:
+        Server(cfg)
+    assert server_key in str(e.value)
 
 
 @pytest.mark.parametrize("override", [

@@ -2,9 +2,11 @@
 
 Importing every module of veneur_tpu_torch, and chip_smoke.py, pulls in
 neither jax nor any veneur_tpu module (checked in a fresh interpreter).
-Only the generated `*_pb2` modules import google.protobuf at module
+Only the generated `*_pb2` modules and `cluster/wire.py`, which turns
+forward exports into metricpb bytes, import google.protobuf at module
 level: every other module imports it inside the functions that handle a
-span, so importing them all pulls in no yaml, protobuf or grpc, and a
+span or an import (the engine imports the wire inside `import_list`), so
+importing them all pulls in no yaml, protobuf or grpc, and a
 DogStatsD-only server that starts, takes a datagram and flushes imports
 no protobuf either. chip_smoke.py refuses to run without a card or
 without the package beside it, and then prints no result.
@@ -23,7 +25,7 @@ import veneur_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     veneur_tpu_torch.__path__, "veneur_tpu_torch.")]
 for name in names:
-    if not name.endswith("_pb2"):
+    if not name.endswith("_pb2") and name != "veneur_tpu_torch.cluster.wire":
         importlib.import_module(name)
 import chip_smoke
 absent = sorted(m for m in sys.modules
@@ -31,6 +33,12 @@ absent = sorted(m for m in sys.modules
                     ("yaml.", "grpc.", "google.protobuf")))
 from veneur_tpu_torch.ssf.protos import ssf_pb2
 assert ssf_pb2.SSFSpan(name="x").name == "x"
+from veneur_tpu_torch.cluster import wire
+from veneur_tpu_torch.cluster.protos import forward_pb2, metric_pb2
+ml = forward_pb2.MetricList(metrics=[metric_pb2.Metric(name="x")])
+assert forward_pb2.MetricList.FromString(
+    ml.SerializeToString()).metrics[0].name == "x"
+assert wire.metric_pb2 is metric_pb2 and wire.forward_pb2 is forward_pb2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "veneur_tpu" or m.startswith("veneur_tpu."))
@@ -82,6 +90,15 @@ SERVER_PATH = ("veneur_tpu_torch.server", "veneur_tpu_torch.http_api",
                "veneur_tpu_torch.ingest.admission")
 
 
+# the global tier's engine and wire: each must be among the modules
+# imported above
+GLOBAL_PATH = ("veneur_tpu_torch.cluster", "veneur_tpu_torch.cluster.wire",
+               "veneur_tpu_torch.cluster.protos",
+               "veneur_tpu_torch.cluster.protos.metric_pb2",
+               "veneur_tpu_torch.cluster.protos.forward_pb2",
+               "veneur_tpu_torch.models.pipeline")
+
+
 def _clean_env():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -97,6 +114,7 @@ def test_port_and_chip_smoke_import_no_jax():
     names = names.split(",")
     assert len(names) >= 30
     assert set(SERVER_PATH) <= set(names)
+    assert set(GLOBAL_PATH) <= set(names)
     assert bad == "", f"JAX-side modules imported: {bad}"
     assert absent == "", f"yaml/protobuf/grpc imported: {absent}"
 

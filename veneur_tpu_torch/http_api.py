@@ -8,8 +8,8 @@ GET /debug/fleet the fleet view, GET /healthz and /ready structured
 verdicts. GET /debug/flush/profile?ticks=N schedules an on-demand
 torch.profiler capture of the next N flush ticks when the server was
 configured with debug_flush_profile. POST /import (handlers_global.go)
-needs the forward wire and answers 501 until the global tier is ported
-(ROADMAP queue A, item 10); /query answers as the reference does on a
+needs the import server and answers 501 until it is ported (ROADMAP
+queue A, item 10.2); /query answers as the reference does on a
 server without the time-travel tier.
 
 `ProfileServer` is enable_profiling's listener on profile_port: GET
@@ -33,7 +33,8 @@ from . import __version__
 BUILD_DATE = "dev"
 
 IMPORT_NOT_PORTED = (b"POST /import is not ported to veneur_tpu_torch yet "
-                     b"(ROADMAP queue A, item 10, global tier)\n")
+                     b"(ROADMAP queue A, item 10.2, forward, import and "
+                     b"proxy)\n")
 
 
 class HttpApi:

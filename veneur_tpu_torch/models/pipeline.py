@@ -40,8 +40,24 @@ flushed, and the host overlays them on the baseline row of an empty
 flush — bit-identical to flushing every row, because every op of the
 flush is row-local and a fresh row is a fixed point of the compress.
 
-This port is local-only so far: forwarding, the global tier's imports,
-checkpoints and the relayed-backend fetch modes are refused by
+Two tiers, as in the JAX package (flusher.go semantics):
+  * a local engine with `forward_enabled` routes by scope: mixed-scope
+    histograms/timers emit the configured local aggregates and forward
+    their digest (percentiles are computed globally), mixed sets
+    forward their registers, `veneurlocalonly` keys flush fully
+    locally and `veneurglobalonly` keys only forward; counters and
+    gauges stay local unless global-only. `flush(forward_kind=...)`
+    returns the forwarded state as `FlushResult.export` (a
+    ForwardExport; cluster/wire.py turns it into metricpb bytes), full
+    or, from the retired dirty bitmap, delta.
+  * a global engine (`is_global`) takes forwarded metrics through
+    `import_list` / `import_*`: counters and gauges accumulate on host,
+    set registers join their rows, and digests are staged and land in
+    batches — each slot's pile clustered by the histogram engine's
+    `cluster_rows` (eager torch), then merged and compressed (the
+    compress kernel on the card) — at a staging bound, and for the
+    retiring interval outside the lock in the flush.
+Checkpoints and the relayed-backend fetch modes are refused by
 EngineConfig (ROADMAP queue A names where each will be ported). The
 server's admission controller attaches through `attach_admission`.
 """
@@ -50,18 +66,31 @@ from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
 
 import numpy as np
 import torch
 
 from .. import kernels, sketches
-from ..ingest.parser import UDPMetric
+from ..ingest.parser import GLOBAL_ONLY, LOCAL_ONLY, MetricKey, UDPMetric
 from ..kernels import probe as kprobe
 from ..metrics import InterMetric, MetricFrame, MetricType
 from ..ops import scalar
 from ..utils import hashing
 from .worker import FOLD_SLOT, KeyInterner
+
+# Widest per-slot centroid pile the import landing hands to one
+# cluster_rows call; wider (untrusted) forwarded piles are clustered in
+# chunks of this size first.
+_IMPORT_W_CAP = 4096
+
+# Forwarded digests are staged until this many centroids (or digests)
+# are pending, then land in one batched round.
+_IMPORT_STAGE_CENTROIDS = 1 << 20
+_IMPORT_STAGE_DIGESTS = 8192
+
+# staged imported set rows that land together
+_IMPORT_STAGE_SETS = 256
 
 
 def _precluster_k1(v, w, n_points):
@@ -81,7 +110,7 @@ def _precluster_k1(v, w, n_points):
     return vsum[keep] / wsum[keep], wsum[keep]
 
 
-def _flush_program_body(heng, seng, agg_emit):
+def _flush_program_body(heng, seng, agg_emit, fwd_out=False):
     """The flush computation — compress + quantiles + the configured
     aggregates + counter/gauge/set finalization — as a function of
     (hb, cb, gb, sb, qs). The full path and the incremental path run this
@@ -100,6 +129,8 @@ def _flush_program_body(heng, seng, agg_emit):
       c_hi/c_lo [Kc], g_value [Kg], g_seq i32[Kg]
       s_est [Ks] (HLL) or s_counts i32[Ks, 256] (ULL; the host half
                          of the estimate turns it into s_est)
+      h_* / s_regs       the raw forward-export state (fwd_out only): the
+                         engine's forward leaves and the set registers
     """
     def program(hb, cb, gb, sb, qs):
         hb = heng.compress(hb)
@@ -124,6 +155,9 @@ def _flush_program_body(heng, seng, agg_emit):
             out["aggcols"] = torch.stack(cols, dim=1)
         if "count" not in agg_emit:
             out["cnt"] = agg["count"]
+        if fwd_out:
+            out.update(heng.forward_leaves(hb))
+            out["s_regs"] = sb.registers
         return out
 
     return program
@@ -164,6 +198,18 @@ def _out_bank_kind(key: str) -> int:
     return 0
 
 
+class ImportFoldReroute(Exception):
+    """An over-budget imported key's fold target is homed on another
+    engine (overload defense, multi-worker server): raised out of the
+    engine's import_* before any staging, carrying the fold key so the
+    caller can re-route the aggregate to its home engine."""
+
+    def __init__(self, key: MetricKey, digest: int):
+        super().__init__(f"fold of imported key rehomes to {key.name}")
+        self.key = key
+        self.digest = digest
+
+
 def _not_ported(feature: str, item: str):
     return NotImplementedError(
         f"{feature} is not ported to veneur_tpu_torch yet "
@@ -197,10 +243,6 @@ class EngineConfig:
     flush_incremental_threshold: float = 0.75
 
     def __post_init__(self):
-        if self.forward_enabled:
-            raise _not_ported("forward_enabled", "item 10, global tier")
-        if self.is_global:
-            raise _not_ported("is_global", "item 10, global tier")
         if self.flush_fetch != "sync" or self.flush_fetch_f16:
             raise _not_ported(
                 f"flush_fetch={self.flush_fetch!r} "
@@ -234,15 +276,39 @@ class EngineConfig:
                 f"{self.flush_incremental_threshold!r}")
 
 
+@dataclass
+class ForwardExport:
+    """Global-scope state to send upstream, one entry per key — the
+    Export()/Metric() payloads of the samplers (samplers.go sym:
+    Histo.Metric, Set.Export, Counter.Export)."""
+    histograms: list = dc_field(default_factory=list)
+    # (key, means f32[n], weights f32[n], min, max, sum, count, recip)
+    sets: list = dc_field(default_factory=list)        # (key, registers u8[m])
+    counters: list = dc_field(default_factory=list)    # (key, value)
+    gauges: list = dc_field(default_factory=list)      # (key, value)
+    # which set engine produced `sets` (selects the register wire code);
+    # histograms are engine-agnostic weighted points on the wire
+    set_engine: str = "hll"
+    # "full": every interned global counter and forwarded set ships,
+    # idle ones as zero totals / empty registers (the receiver's liveness
+    # refresh); "delta": only the keys the dirty bitmap saw land this
+    # interval. Histograms and gauges are touched-only under either kind:
+    # a zero-count histogram row is dropped by the receiver's flush, and
+    # a synthetic zero gauge would overwrite its last write.
+    kind: str = "full"
+
+
 class FlushResult:
-    """Flush output: the columnar MetricFrame, the status-check metrics
-    and per-flush stats. `metrics` materializes the InterMetric list
-    lazily."""
+    """Flush output: the columnar MetricFrame, the forward export, the
+    status-check metrics and per-flush stats. `metrics` materializes the
+    InterMetric list lazily."""
 
-    __slots__ = ("frame", "stats", "_metrics", "status_metrics")
+    __slots__ = ("frame", "export", "stats", "_metrics", "status_metrics")
 
-    def __init__(self, frame=None, stats=None, status_metrics=None):
+    def __init__(self, frame=None, export=None, stats=None,
+                 status_metrics=None):
         self.frame = frame
+        self.export = export if export is not None else ForwardExport()
         self.stats = stats if stats is not None else {}
         self._metrics = None
         self.status_metrics = status_metrics or []
@@ -388,19 +454,22 @@ class AggregationEngine:
                                    "avg", "hmean")]
         agg_types = tuple(MetricType.COUNTER if a == "count"
                           else MetricType.GAUGE for a in self._agg_emit)
-        self._histo_types = (
+        self._histo_full_types = (
             (MetricType.GAUGE,) * len(self._pct_sufs) + agg_types)
+        self._histo_agg_types = agg_types
         self._agg_idx = {a: i for i, a in enumerate(self._agg_emit)}
+        # a forwarding local (a global never forwards): the flush body
+        # also returns the forward leaves, and assembly routes by scope
+        self._fwd_out = cfg.forward_enabled and not cfg.is_global
         self._program = _flush_program_body(self._heng, self._seng,
-                                            tuple(self._agg_emit))
+                                            tuple(self._agg_emit),
+                                            self._fwd_out)
         self._tags_cache: dict[str, list] = {}
         self._pres_bound = 4 * (cfg.histogram_slots + cfg.counter_slots
                                 + cfg.gauge_slots + cfg.set_slots)
         self.samples_processed = 0
         # overload defense (ingest/admission.py), wired by
-        # attach_admission; forwarding is refused (item 10), so folds
-        # keep their samples' scope
-        self._fwd_out = cfg.forward_enabled and not cfg.is_global
+        # attach_admission
         self._adm = None
         self._adm_index = 0
         self._adm_n = 1
@@ -422,6 +491,15 @@ class AggregationEngine:
         self._status: dict = {}
         # events of the interval, handed to the server's sinks as they are
         self._pending_events: list = []
+        # the global tier's staged imports (batched, so an interval's
+        # forwards cost a handful of landings, not one per key) and the
+        # applied-op watermark of import_list
+        self._import_centroids: list = []
+        self._import_centroid_total = 0
+        self._import_sets: list = []          # (slot, registers u8[m])
+        self._import_counter_acc: dict = {}   # slot -> host f64 sum
+        self._import_gauge_acc: dict = {}     # slot -> last value
+        self.last_import_op = 0
 
     def _bank_sizes(self):
         cfg = self.cfg
@@ -505,6 +583,23 @@ class AggregationEngine:
             return None, -1
         self._adm.count_folded()
         return fm, slot
+
+    def _fold_import_slot(self, interner, key: MetricKey) -> int:
+        """Import-path fold (the global tier's Combine): an over-budget
+        forwarded key's aggregate lands in its prefix's `__other__` slot
+        through the same merge (no sampling: a forwarded digest is an
+        interval aggregate, not a sample). A fold key homed on another
+        engine raises ImportFoldReroute."""
+        if self._adm is None:
+            return -1
+        fk, digest = self._adm.fold_key(key)
+        if self._adm_n > 1 and digest % self._adm_n != self._adm_index:
+            self._adm.count_folded()
+            raise ImportFoldReroute(fk, digest)
+        slot = interner.lookup(fk, GLOBAL_ONLY)
+        if slot >= 0:
+            self._adm.count_folded()
+        return slot
 
     def process(self, m: UDPMetric):
         """Route one parsed sample to its bank's staging buffer — the
@@ -776,6 +871,286 @@ class AggregationEngine:
             return bank
         return self._insert_sets(bank, slots, reg_idx, rho)
 
+    # ---------------- import (the global tier's Combine path) --------
+
+    def _import_slot(self, interner, key: MetricKey) -> int:
+        slot = interner.lookup(key, GLOBAL_ONLY)
+        if slot == FOLD_SLOT:
+            slot = self._fold_import_slot(interner, key)
+        return slot
+
+    def import_histogram(self, key: MetricKey, means, weights, vmin, vmax,
+                         vsum, count, recip=0.0):
+        """Stage a forwarded digest for merging — Histo.Combine
+        (worker.go sym: Worker.ImportMetricGRPC)."""
+        with self.lock:
+            self._import_histogram_locked(key, means, weights, vmin,
+                                          vmax, vsum, count, recip)
+
+    def _import_histogram_locked(self, key, means, weights, vmin, vmax,
+                                 vsum, count, recip=0.0):
+        slot = self._import_slot(self.histo_keys, key)
+        if slot < 0:
+            return
+        means = np.asarray(means, np.float32)
+        self._import_centroids.append(
+            (slot, means, np.asarray(weights, np.float32),
+             float(vmin), float(vmax), float(vsum), float(count),
+             float(recip)))
+        self._import_centroid_total += len(means)
+        if (len(self._import_centroids) >= _IMPORT_STAGE_DIGESTS
+                or self._import_centroid_total
+                >= _IMPORT_STAGE_CENTROIDS):
+            self._flush_import_centroids()
+
+    def import_set(self, key: MetricKey, registers, engine_id=None):
+        with self.lock:
+            self._import_set_locked(key, registers, engine_id)
+
+    def _import_set_locked(self, key, registers, engine_id=None):
+        # a register row of another engine or width rejects this metric,
+        # never joins a bank whose update rule it does not share
+        if engine_id is not None and engine_id != self._seng.id:
+            raise ValueError(
+                f"set sketch engine mismatch: payload {engine_id!r}, "
+                f"bank runs {self._seng.id!r}")
+        regs = np.asarray(registers, np.uint8)
+        if regs.shape[-1] != self.set_bank.num_registers:
+            raise ValueError(
+                f"set register width {regs.shape[-1]} != bank width "
+                f"{self.set_bank.num_registers}")
+        slot = self._import_slot(self.set_keys, key)
+        if slot < 0:
+            return
+        self._import_sets.append((slot, regs))
+        if len(self._import_sets) >= _IMPORT_STAGE_SETS:
+            self._flush_import_sets()
+
+    def import_counter(self, key: MetricKey, value: float):
+        with self.lock:
+            self._import_counter_locked(key, value)
+
+    def _import_counter_locked(self, key, value):
+        slot = self._import_slot(self.counter_keys, key)
+        if slot < 0:
+            return
+        # summed on host in float64, landed once per flush
+        self._import_counter_acc[slot] = (
+            self._import_counter_acc.get(slot, 0.0) + float(value))
+
+    def import_gauge(self, key: MetricKey, value: float):
+        with self.lock:
+            self._import_gauge_locked(key, value)
+
+    def _import_gauge_locked(self, key, value):
+        slot = self._import_slot(self.gauge_keys, key)
+        if slot < 0:
+            return
+        self._import_gauge_acc[slot] = float(value)   # last write wins
+
+    def import_list(self, op_id: int, pbs) -> tuple:
+        """Apply one import op's metricpb.Metric messages under ONE lock
+        hold, advancing the applied-op watermark `last_import_op` in the
+        same critical section. Returns (rerouted, rejected): fold keys
+        homed on other engines as (ImportFoldReroute, pb) pairs, and
+        per-metric failures as (pb, exception) pairs — one corrupt
+        metric rejects itself, not the op."""
+        from ..cluster import wire
+        rerouted, rejected = [], []
+        with self.lock:
+            for pb in pbs:
+                try:
+                    wire.apply_metric_to_engine_locked(self, pb)
+                except ImportFoldReroute as fr:
+                    rerouted.append((fr, pb))
+                except Exception as e:
+                    rejected.append((pb, e))
+            if op_id > self.last_import_op:
+                self.last_import_op = op_id
+        return rerouted, rejected
+
+    def _flush_import_sets(self):
+        items, self._import_sets = self._import_sets, []
+        self.set_bank = self._land_import_sets(self.set_bank, items,
+                                               self._dirty)
+
+    def _land_import_sets(self, bank, items, dirty):
+        if not items:
+            return bank
+        slots = np.array([s for s, _ in items], np.int32)
+        self._mark_dirty_into(dirty, 3, slots)
+        return self._seng.merge_rows(
+            bank, self._tensor(slots, np.int32),
+            self._tensor(np.stack([r for _, r in items]), np.uint8))
+
+    def _land_import_scalars(self, cbank, gbank, counters, gauges, dirty,
+                             gauge_seq):
+        """Land the accumulated counter sums (one float64 value a slot)
+        and the last gauge values, the gauges sequenced after every
+        gauge the interval ingested."""
+        if counters:
+            slots = np.fromiter(counters.keys(), np.int32, len(counters))
+            self._mark_dirty_into(dirty, 1, slots)
+            cbank = scalar.counter_merge(
+                cbank, self._tensor(slots, np.int32),
+                self._tensor(np.fromiter(counters.values(), np.float64,
+                                         len(counters)), np.float64))
+        if gauges:
+            slots = np.fromiter(gauges.keys(), np.int32, len(gauges))
+            self._mark_dirty_into(dirty, 2, slots)
+            seqs = np.arange(len(gauges), dtype=np.int32) + gauge_seq + 1
+            gauge_seq += len(gauges)
+            gbank = scalar.gauge_set(
+                gbank, self._tensor(slots, np.int32),
+                self._tensor(np.fromiter(gauges.values(), np.float32,
+                                         len(gauges)), np.float32),
+                self._tensor(seqs, np.int32))
+        return cbank, gbank, gauge_seq
+
+    def _flush_import_centroids(self):
+        items = self._import_centroids
+        self._import_centroids = []
+        self._import_centroid_total = 0
+        self.histo_bank = self._land_import_centroids(
+            self.histo_bank, items, self._dirty)
+
+    def _land_import_centroids(self, bank, items, dirty):
+        """Land staged forwarded digests into `bank` under the histogram
+        engine's import strategy: "cluster" (t-digest: each slot's pile
+        clustered to <= C centroids by one batched `cluster_rows`, then
+        merged through the sample buffers, a compress per buffer depth
+        of columns and a final compress) or "direct" (REQ: the points
+        re-insert through the engine's own compaction)."""
+        if not items:
+            return bank
+        heng = self._heng
+        if heng.import_strategy == "direct":
+            return self._land_imports_direct(bank, items, dirty)
+        C = bank.num_centroids
+        by_slot: dict[int, list] = {}
+        for s, means, weights, *_ in items:
+            by_slot.setdefault(s, []).append((means, weights))
+
+        # Forwarded payloads are untrusted: an oversized pile must not
+        # size the [S, W] matrix. It is clustered in chunks of `cap`
+        # centroids first; each pass turns a chunk into C centroids, so
+        # with cap >= 2C the loop shrinks the pile. Pass 1 sorts whole
+        # rows (foreign rows are unordered); later passes re-cluster our
+        # own cluster_rows outputs, pile-aligned, so each chunk's first C
+        # lanes are an ordered run and take sorted_prefix=C.
+        cap = max(_IMPORT_W_CAP, 2 * C)
+        trusted: set = set()
+        while True:
+            oversized = [s for s, piles in by_slot.items()
+                         if sum(len(m) for m, _ in piles) > cap]
+            if not oversized:
+                break
+            batches = {0: ([], [], []), C: ([], [], [])}
+            piles_per_chunk = cap // C
+            for s in oversized:
+                piles = by_slot[s]
+                if s in trusted:
+                    owners, chunks_v, chunks_w = batches[C]
+                    for i in range(0, len(piles), piles_per_chunk):
+                        cv = np.zeros(piles_per_chunk * C, np.float32)
+                        cw = np.zeros(piles_per_chunk * C, np.float32)
+                        for g, (m, w) in enumerate(
+                                piles[i:i + piles_per_chunk]):
+                            cv[g * C:g * C + len(m)] = m
+                            cw[g * C:g * C + len(m)] = w
+                        owners.append(s)
+                        chunks_v.append(cv)
+                        chunks_w.append(cw)
+                else:
+                    owners, chunks_v, chunks_w = batches[0]
+                    m = np.concatenate([p[0] for p in piles])
+                    w = np.concatenate([p[1] for p in piles])
+                    for i in range(0, len(m), cap):
+                        cv = np.zeros(cap, np.float32)
+                        cw = np.zeros(cap, np.float32)
+                        n = min(len(m), i + cap) - i
+                        cv[:n] = m[i:i + n]
+                        cw[:n] = w[i:i + n]
+                        owners.append(s)
+                        chunks_v.append(cv)
+                        chunks_w.append(cw)
+                by_slot[s] = []
+            for prefix, (owners, chunks_v, chunks_w) in batches.items():
+                if not owners:
+                    continue
+                cm, cw = heng.cluster_rows(
+                    self._tensor(np.stack(chunks_v), np.float32),
+                    self._tensor(np.stack(chunks_w), np.float32),
+                    num_centroids=C, sorted_prefix=prefix)
+                cm, cw = cm.cpu().numpy(), cw.cpu().numpy()
+                for row, s in enumerate(owners):
+                    by_slot[s].append((cm[row], cw[row]))
+            trusted.update(oversized)
+
+        slot_ids = np.fromiter(by_slot.keys(), np.int32, len(by_slot))
+        self._mark_dirty_into(dirty, 0, slot_ids)
+        widths = [sum(len(m) for m, _ in piles)
+                  for piles in by_slot.values()]
+        W = max(128, int(np.ceil(max(widths) / 128.0) * 128))
+        vals = np.zeros((len(slot_ids), W), np.float32)
+        wts = np.zeros((len(slot_ids), W), np.float32)
+        for row, piles in enumerate(by_slot.values()):
+            off = 0
+            for m, w in piles:
+                vals[row, off:off + len(m)] = m
+                wts[row, off:off + len(m)] = w
+                off += len(m)
+        cmeans, cwts = heng.cluster_rows(
+            self._tensor(vals, np.float32), self._tensor(wts, np.float32),
+            num_centroids=C)
+        # merge_centroids drops what overflows a buffer, so the C columns
+        # land a buffer depth at a time, each after a compress (one round
+        # at the default C = B)
+        B = bank.buf_size
+        slots_t = self._tensor(slot_ids, np.int32)
+        for c0 in range(0, C, B):
+            width = min(C, c0 + B) - c0
+            bank = heng.compress(bank)
+            bank = heng.merge_centroids(
+                bank, slots_t.repeat_interleave(width),
+                cmeans[:, c0:c0 + width].reshape(-1),
+                cwts[:, c0:c0 + width].reshape(-1))
+        bank = heng.compress(bank)
+        return self._merge_import_scalars(bank, items)
+
+    def _merge_import_scalars(self, bank, items):
+        """The digests' exact min/max/sum/count/recip, merged by slot."""
+        cols = np.array([it[3:8] for it in items], np.float32)
+        return self._heng.merge_scalars(
+            bank, self._tensor([it[0] for it in items], np.int32),
+            *(self._tensor(cols[:, j], np.float32) for j in range(5)))
+
+    # fixed flat-batch width of the direct import landing
+    _DIRECT_LAND_WIDTH = 4096
+
+    def _land_imports_direct(self, bank, items, dirty):
+        """The "direct" import strategy (REQ): every forwarded weighted
+        point re-inserts through the engine's merge_centroids, whose
+        compaction bounds memory, in fixed-width padded batches."""
+        W = self._DIRECT_LAND_WIDTH
+        slots = np.concatenate([
+            np.full(len(it[1]), it[0], np.int32) for it in items])
+        means = np.concatenate([it[1] for it in items])
+        wts = np.concatenate([it[2] for it in items])
+        self._mark_dirty_into(dirty, 0, np.unique(slots))
+        for i in range(0, len(slots), W):
+            n = min(len(slots), i + W) - i
+            ps = np.full(W, -1, np.int32)
+            pm = np.zeros(W, np.float32)
+            pw = np.zeros(W, np.float32)
+            ps[:n] = slots[i:i + n]
+            pm[:n] = means[i:i + n]
+            pw[:n] = wts[i:i + n]
+            bank = self._heng.merge_centroids(
+                bank, self._tensor(ps, np.int32),
+                self._tensor(pm, np.float32), self._tensor(pw, np.float32))
+        return self._merge_import_scalars(bank, items)
+
     # ---------------- flush ----------------
 
     def _swap_banks(self):
@@ -905,16 +1280,22 @@ class AggregationEngine:
             out[k] = full
         return out
 
-    def _flush_bookkeeping(self) -> tuple:
+    def _flush_bookkeeping(self, full_export: bool = False) -> tuple:
         """Under the lock, at the tick boundary: snapshot the active key
         sets and per-interval counters, reset them, and advance the
-        interner intervals."""
+        interner intervals. A full forward export (`full_export`) also
+        snapshots the counter and set interners' whole tables, in the
+        same lock hold as the bank swap, so the export and the banks
+        describe one instant."""
         active = {
             "histo": self.histo_keys.active_items(),
             "counter": self.counter_keys.active_items(),
             "gauge": self.gauge_keys.active_items(),
             "set": self.set_keys.active_items(),
         }
+        if full_export:
+            active["counter_all"] = self.counter_keys.all_items()
+            active["set_all"] = self.set_keys.all_items()
         status, self._status = self._status, {}
         samples, self.samples_processed = self.samples_processed, 0
         dropped = 0
@@ -928,11 +1309,12 @@ class AggregationEngine:
             ki.advance_interval()
         return active, status, samples, dropped, histo_key_count
 
-    def _land_retired(self, snap, dirty, stages, set_landing) -> tuple:
+    def _land_retired(self, snap, dirty, stages, set_landing, imports,
+                      gauge_seq) -> tuple:
         """Outside the lock (double-buffered flush): drain the retired
-        interval's stage buffers into the retired banks, marking the
-        retired bitmaps; the set stage lands together with the retired
-        set landing buffer, in one insert."""
+        interval's stage buffers into the retired banks, then land its
+        staged imports, marking the retired bitmaps; the set stage lands
+        together with the retired set landing buffer, in one insert."""
         hb, cb, gb, sb = snap
         a = stages.get("histo")
         if a is not None:
@@ -952,17 +1334,34 @@ class AggregationEngine:
             self._mark_dirty_into(dirty, 3, a["slots"])
             extra = (a["slots"], a["reg_idx"], a["rho"])
         sb = self._land_set_buffer(sb, set_landing, extra)
+        centroids, sets, counters, gauges = imports
+        hb = self._land_import_centroids(hb, centroids, dirty)
+        sb = self._land_import_sets(sb, sets, dirty)
+        cb, gb, _seq = self._land_import_scalars(cb, gb, counters, gauges,
+                                                 dirty, gauge_seq)
         return hb, cb, gb, sb
 
-    def flush(self, timestamp: int | None = None) -> FlushResult:
-        """The Server.Flush equivalent: retire the interval's banks, run
-        the flush body, assemble the MetricFrame and status checks.
+    def flush(self, timestamp: int | None = None,
+              forward_kind: str = "full") -> FlushResult:
+        """The Server.Flush equivalent: retire the interval's banks and
+        staged imports, run the flush body, assemble the MetricFrame,
+        the forward export and the status checks.
+
+        `forward_kind="delta"` builds the export from the retired dirty
+        bitmap: only the counters and sets that landed this interval
+        ship. It degrades to "full" without a bitmap (incremental flush
+        off) or on an engine that does not forward; `export.kind` and
+        `stats["forward_kind"]` say what was built. The local frame is
+        never filtered by the kind.
 
         Double-buffered: the lock is held only across the swap of stage
-        buffers, banks and dirty bitmaps; draining the retired stages,
-        the flush body and host assembly run outside it."""
+        buffers, staged imports, banks and dirty bitmaps; draining the
+        retired stages, landing the retired imports, the flush body and
+        host assembly run outside it."""
         ts = int(timestamp if timestamp is not None else time.time())
         cfg = self.cfg
+        fwd_out = self._fwd_out
+        full_export = fwd_out and forward_kind != "delta"
         t_start = time.monotonic_ns()
         with self.lock:
             stages = {name: st.drain()
@@ -971,26 +1370,42 @@ class AggregationEngine:
                                        ("gauge", self._gauge_stage),
                                        ("set", self._set_stage))
                       if st.n}
-            self._gauge_seq = 0
+            imports = (self._import_centroids, self._import_sets,
+                       self._import_counter_acc, self._import_gauge_acc)
+            self._import_centroids = []
+            self._import_centroid_total = 0
+            self._import_sets = []
+            self._import_counter_acc = {}
+            self._import_gauge_acc = {}
+            retired_seq, self._gauge_seq = self._gauge_seq, 0
             set_landing = self._set_landing
             self._set_landing = _SetLanding(set_landing.capacity)
             snap = self._swap_banks()
             dirty = self._retire_dirty()
+            # the applied-op watermark at the swap: every op up to it is
+            # in the retiring banks, every later one in the fresh banks
+            retired_wm = self.last_import_op
             active, status, samples, dropped, histo_key_count = \
-                self._flush_bookkeeping()
+                self._flush_bookkeeping(full_export)
         t_swap = time.monotonic_ns()
         # flight-recorder stamps (name, t0_ns, t1_ns) on the monotonic_ns
         # clock, returned in stats["phases"] for the server's phase tree
         phases = [("swap", t_start, t_swap)]
-        snap = self._land_retired(snap, dirty, stages, set_landing)
+        snap = self._land_retired(snap, dirty, stages, set_landing,
+                                  imports, retired_seq)
         t_drain = time.monotonic_ns()
         phases.append(("drain", t_swap, t_drain))
         host = self._flush_device(snap, phases, dirty=dirty)
         t_device = time.monotonic_ns()
 
+        want_delta = (forward_kind == "delta" and fwd_out
+                      and dirty is not None)
         frame = MetricFrame(ts, cfg.hostname)
-        self._assemble_histos(frame, host, active["histo"])
-        self._assemble_scalars(frame, host, active)
+        export = ForwardExport(set_engine=self._seng.id,
+                               kind="delta" if want_delta else "full")
+        self._assemble_histos(frame, host, active["histo"], export)
+        self._assemble_scalars(frame, host, active, export,
+                               dirty if want_delta else None)
         status_metrics = [
             InterMetric(
                 name=sc.name,
@@ -1008,17 +1423,28 @@ class AggregationEngine:
             "histo_keys": histo_key_count,
             "dropped_no_slot": dropped,
             # swap_ns is the lock-held window; merge_ns covers the
-            # retired drain, the flush body and the fetch
+            # retired drain and import landing, the flush body and the
+            # fetch
             "swap_ns": t_swap - t_start,
             "merge_ns": t_device - t_swap,
             "assembly_ns": t_end - t_device,
             "phases": phases,
             "flush_path": dict(self._last_flush_info),
+            # what the export build shipped (a delta request degrades
+            # to full without a bitmap or on a non-forwarding engine)
+            "forward_kind": export.kind,
+            # the applied-op watermark at the swap
+            "retired_import_op": retired_wm,
         }
-        return FlushResult(frame=frame, stats=stats,
+        return FlushResult(frame=frame, export=export, stats=stats,
                            status_metrics=status_metrics)
 
-    def _assemble_histos(self, frame, host, infos):
+    def _assemble_histos(self, frame, host, infos, export):
+        """Histogram rows, routed by scope on a forwarding engine: a
+        local-only key flushes its percentiles and aggregates, a mixed
+        key its aggregates alone, and both mixed and global-only keys
+        ship their digest in `export`. Without forwarding every live key
+        flushes fully."""
         if not infos:
             return
         # aggregate matrix in f64 with the 2Sum lo terms folded back in:
@@ -1037,41 +1463,106 @@ class AggregationEngine:
         ci = self._agg_idx.get("count")
         live_cnt = (aggmat[:, ci] if ci is not None
                     else host["cnt"].astype(np.float64))
-        slots = np.fromiter((t[1] for t in infos), np.int64, len(infos))
-        idx = np.nonzero(live_cnt[slots] > 0)[0].tolist()
+        n = len(infos)
+        slots = np.fromiter((t[1] for t in infos), np.int64, n)
+        live = live_cnt[slots] > 0
+        aggonly_m = None
+        if self._fwd_out:
+            scopes = np.fromiter((t[2] for t in infos), np.int64, n)
+            exp_m = live & (scopes != LOCAL_ONLY)
+            full_m = live & (scopes == LOCAL_ONLY)
+            aggonly_m = exp_m & (scopes != GLOBAL_ONLY)
+            self._export_histos(export, host, infos, exp_m)
+        else:
+            full_m = live
+        idx = np.nonzero(full_m)[0].tolist()
         if idx:
             pres = [self._histo_pres_of(infos[i]) for i in idx]
             rows = slots[idx]
             frame.add_block(
-                [p[0] for p in pres], [p[1] for p in pres],
+                [p[0] for p in pres], [p[2] for p in pres],
                 np.concatenate([qmat[rows], aggmat[rows]], axis=1),
-                self._histo_types)
+                self._histo_full_types)
+        if aggonly_m is not None and self._agg_emit:
+            idx = np.nonzero(aggonly_m)[0].tolist()
+            if idx:
+                pres = [self._histo_pres_of(infos[i]) for i in idx]
+                frame.add_block(
+                    [p[1] for p in pres], [p[2] for p in pres],
+                    aggmat[slots[idx]], self._histo_agg_types)
 
-    def _assemble_scalars(self, frame, host, active):
+    @staticmethod
+    def _export_histos(export, host, infos, exp_m):
+        """One (key, means, weights, min, max, sum, count, recip) entry
+        per exported key: its positive-weight points and its exact
+        scalars, each 2Sum pair read as f64(hi) + f64(lo)."""
+        exact = {k: (host[f"h_{k}"].astype(np.float64)
+                     + host[f"h_{k}_lo"].astype(np.float64))
+                 for k in ("sum", "count", "recip")}
+        h_mean, h_weight = host["h_mean"], host["h_weight"]
+        for i in np.nonzero(exp_m)[0].tolist():
+            key, slot = infos[i][0], infos[i][1]
+            w = h_weight[slot]
+            nz = w > 0
+            export.histograms.append((
+                key, h_mean[slot][nz], w[nz],
+                float(host["h_min"][slot]), float(host["h_max"][slot]),
+                float(exact["sum"][slot]), float(exact["count"][slot]),
+                float(exact["recip"][slot])))
+
+    def _assemble_scalars(self, frame, host, active, export, delta_dirty):
         """Counters (f64(hi) + f64(lo) totals), gauges (written this
-        interval) and set estimates, one block each."""
-        for name, mtype in (("counter", MetricType.COUNTER),
-                            ("gauge", MetricType.GAUGE),
-                            ("set", MetricType.GAUGE)):
+        interval) and set estimates, one block each. On a forwarding
+        engine global-only counters and gauges and non-local sets go to
+        `export` instead of the frame. Gauges ship when written; counters
+        and sets ship, on a delta export (`delta_dirty`, the retired
+        bitmaps), when their bit is set, and on a full export from the
+        interner's whole table, idle ones as zeros / empty registers."""
+        totals = (host["c_hi"].astype(np.float64)
+                  + host["c_lo"].astype(np.float64))
+        gauges = host["g_value"].astype(np.float64)
+        for name, kind, mtype, vals, wire in (
+                ("counter", 1, MetricType.COUNTER, totals, totals),
+                ("gauge", 2, MetricType.GAUGE, gauges, gauges),
+                ("set", 3, MetricType.GAUGE,
+                 host["s_est"].astype(np.float64), host.get("s_regs"))):
             infos = active[name]
-            if not infos:
-                continue
             slots = np.fromiter((t[1] for t in infos), np.int64, len(infos))
-            if name == "counter":
-                vals = (host["c_hi"].astype(np.float64)
-                        + host["c_lo"].astype(np.float64))[slots]
-                keep = list(range(len(infos)))
-            elif name == "gauge":
-                vals = host["g_value"].astype(np.float64)[slots]
-                keep = np.nonzero(host["g_seq"][slots] >= 0)[0].tolist()
-            else:
-                vals = host["s_est"].astype(np.float64)[slots]
-                keep = list(range(len(infos)))
+            keep = (host["g_seq"][slots] >= 0 if name == "gauge"
+                    else np.ones(len(infos), bool))
+            if self._fwd_out:
+                # sets forward unless local-only; counters and gauges
+                # only when global-only
+                def forwarded(scope, name=name):
+                    return (scope != LOCAL_ONLY if name == "set"
+                            else scope == GLOBAL_ONLY)
+                fwd = forwarded(np.fromiter((t[2] for t in infos),
+                                            np.int64, len(infos)))
+                table = active.get(name + "_all")
+                if name == "gauge":
+                    sent = keep & fwd
+                elif delta_dirty is not None:
+                    sent = fwd & delta_dirty[kind][slots]
+                elif table is None:
+                    sent = fwd
+                else:
+                    sent = None
+                    table = [t for t in table if forwarded(t[2])]
+                if sent is not None:
+                    table = [infos[i] for i in np.nonzero(sent)[0].tolist()]
+                if name == "set":
+                    export.sets.extend((t[0], wire[t[1]]) for t in table)
+                else:
+                    out = (export.counters if name == "counter"
+                           else export.gauges)
+                    out.extend((t[0], float(wire[t[1]])) for t in table)
+                keep = keep & ~fwd
+            keep = np.nonzero(keep)[0].tolist()
             if keep:
                 frame.add_block(
                     [infos[i][0].name for i in keep],
                     [self._scalar_tags_of(infos[i]) for i in keep],
-                    vals[keep], (mtype,))
+                    vals[slots[keep]], (mtype,))
 
     # ---- presentation caches (names/tags reused across flushes), kept
     # on the interner's per-key SlotInfo holder
@@ -1092,11 +1583,13 @@ class AggregationEngine:
         return holder.pres
 
     def _histo_pres_of(self, info) -> tuple:
+        """(all row names, the aggregate row names, tags) of a key."""
         holder = info[3]
         if holder.pres is None:
             key = info[0]
             nm = key.name
-            names = tuple([nm + s for s in self._pct_sufs]
-                          + [f"{nm}.{a}" for a in self._agg_emit])
-            holder.pres = (names, self._tags_of(key.joined_tags))
+            full = tuple([nm + s for s in self._pct_sufs]
+                         + [f"{nm}.{a}" for a in self._agg_emit])
+            holder.pres = (full, full[len(self._pct_sufs):],
+                           self._tags_of(key.joined_tags))
         return holder.pres

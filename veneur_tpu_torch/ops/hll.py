@@ -10,7 +10,8 @@ K sets live as one u8[K, m] register matrix. Hashing happens on the host
 `hll_stats` kernel on the card (kernels/hll_stats.py, csrc/hll_stats.cu)
 and its plain torch version on the CPU.
 
-`insert` updates the register matrix of the bank it is given in place.
+`insert` and `merge_rows` update the register matrix of the bank they
+are given in place.
 """
 
 from __future__ import annotations
@@ -74,6 +75,28 @@ def insert(bank: HLLBank, slots, reg_idx, rho) -> HLLBank:
     flat = bank.registers.view(-1)
     flat[tgt] = torch.maximum(flat[tgt], best)
     return bank
+
+
+def merge_rows(bank: HLLBank, slots, registers) -> HLLBank:
+    """Batched Set.Combine: union forwarded register rows u8[n, m] into
+    their slots (elementwise max), in place. slot == -1 marks padding;
+    rows of one slot in the batch are max-reduced together first, so
+    each bank row is written once."""
+    K = bank.num_slots
+    valid = (slots >= 0) & (slots < K)
+    if not bool(valid.any()):
+        return bank
+    uniq, inv = torch.unique(slots[valid].long(), return_inverse=True)
+    rows = registers[valid].int()
+    acc = bank.registers[uniq].int().scatter_reduce(
+        0, inv[:, None].expand(-1, rows.shape[1]), rows, reduce="amax")
+    bank.registers[uniq] = acc.to(torch.uint8)
+    return bank
+
+
+def merge_banks(a: HLLBank, b: HLLBank) -> HLLBank:
+    """Slot-aligned union of two whole banks (elementwise max)."""
+    return HLLBank(registers=torch.maximum(a.registers, b.registers))
 
 
 # LogLog-Beta coefficients for p=14 (m=16384), as used by the vendored

@@ -78,6 +78,15 @@ def counter_add(bank: CounterBank, slots, values, weights) -> CounterBank:
     return _fold(bank, delta)
 
 
+def counter_merge(bank: CounterBank, slots, values) -> CounterBank:
+    """Combine forwarded counter values (the global tier's import of
+    counters). `values` may be float64: as in `counter_add`, each slot's
+    delta is summed in float64 and rounded once (divergence C.2's
+    design); the import landing hands one host-summed value per slot."""
+    delta = scatter.segment_sum_f64(slots, values, bank.num_slots)
+    return _fold(bank, delta)
+
+
 def counter_totals(bank: CounterBank):
     """Read totals with the compensation folded back in (host side does
     float64(hi) + float64(lo) for full precision)."""

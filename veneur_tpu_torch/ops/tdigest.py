@@ -184,13 +184,19 @@ def _cluster_core(vals, wts, compression: float, C: int, sorted_prefix: int):
     centroids per row. Zero-weight entries are padding. `sorted_prefix=S`
     asserts vals[:, :S] is cluster-ordered (the module invariant); only
     vals[:, S:] is sorted, then the runs are rank-merged. S == M means the
-    whole row is one ordered run."""
+    whole row is one ordered run; S == 0 (untrusted rows) sorts the whole
+    row, stably on the canonical key, as the JAX package's `lax.sort`
+    does."""
     K, M = vals.shape
     S = sorted_prefix
-    if not 0 < S <= M:
-        raise ValueError(f"sorted_prefix {S} outside (0, {M}]")
+    if not 0 <= S <= M:
+        raise ValueError(f"sorted_prefix {S} outside [0, {M}]")
     vals = torch.where(wts > 0, vals, _INF)
-    if S < M:
+    if S == 0:
+        _key, perm = _stable_sort_perm(_canonical_sort_key(vals))
+        vals = torch.gather(vals, 1, perm)
+        wts = torch.gather(wts, 1, perm)
+    elif S < M:
         akey = _canonical_sort_key(vals[:, :S])
         bkey, perm = _stable_sort_perm(_canonical_sort_key(vals[:, S:]))
         tags = _merge_sorted_runs(akey, bkey, S, M)
@@ -338,6 +344,63 @@ def _compress_impl(bank: TDigestBank, compression: float) -> TDigestBank:
         buf_n=torch.zeros_like(bank.buf_n))
 
 
+def cluster_rows(values, weights, compression: float = 100.0,
+                 num_centroids: int = 256, sorted_prefix: int = 0):
+    """Cluster padded weighted-point rows: f32[S, M] x2 -> (means
+    f32[S, C], weights f32[S, C]) — the global tier's batched merge of
+    forwarded digests, one row per slot. Foreign rows are unordered and
+    untrusted, so the default is the full row sort; `sorted_prefix=S`
+    is for re-merges whose first S lanes of every row are a previous
+    `cluster_rows` output (never for a payload). Eager torch on either
+    device: the JAX package runs it as XLA, not as a kernel."""
+    return _cluster_core(values, weights, compression, num_centroids,
+                         sorted_prefix=sorted_prefix)
+
+
+def merge_banks(a: TDigestBank, b: TDigestBank,
+                compression: float = 100.0) -> TDigestBank:
+    """Slot-aligned union of two whole banks, bit-commutative:
+    merge_banks(a, b) == merge_banks(b, a) bit for bit. Both banks are
+    compressed, their centroid rows concatenated and sorted on the
+    canonical (value key, weight bits) pair with empties strictly last —
+    an order of the multiset alone — then clustered as one ordered run.
+    Zeros are folded to +0.0 first, so -0.0 and +0.0 cannot trade places
+    between the two orders. The scalar leaves merge in float64
+    (`merge_scalar_banks`)."""
+    a = _compress_impl(a, compression)
+    b = _compress_impl(b, compression)
+    C = a.num_centroids
+    vals = torch.cat([a.mean, b.mean], dim=1)
+    wts = torch.cat([a.weight, b.weight], dim=1)
+    vals = torch.where(vals == 0.0, torch.zeros_like(vals), vals)
+    kv = _canonical_sort_key(torch.where(wts > 0, vals, _INF))
+    # weights are non-negative, so their bits are order-monotone; empties
+    # key above every real weight
+    kw = torch.where(wts > 0, wts.view(torch.int32).long() & _KEY_MAX,
+                     torch.full_like(kv, _KEY_MAX))
+    order = torch.sort(((kv - (1 << 31)) << 32) | kw, dim=1).indices
+    vals = torch.gather(vals, 1, order)
+    wts = torch.gather(wts, 1, order)
+    mean, weight = _cluster_core(vals, wts, compression, C,
+                                 sorted_prefix=vals.shape[1])
+    return a._replace(mean=mean, weight=weight, **merge_scalar_banks(a, b))
+
+
+def reset(bank: TDigestBank) -> TDigestBank:
+    """Fresh interval state with the same shapes on the same device (the
+    Worker.Flush map swap)."""
+    z = torch.zeros_like(bank.vmin)
+    return TDigestBank(
+        mean=torch.zeros_like(bank.mean), weight=torch.zeros_like(
+            bank.weight),
+        buf_value=torch.zeros_like(bank.buf_value),
+        buf_weight=torch.zeros_like(bank.buf_weight),
+        buf_n=torch.zeros_like(bank.buf_n),
+        vmin=torch.full_like(z, _INF), vmax=torch.full_like(z, -_INF),
+        vsum=z, count=z.clone(), recip=z.clone(), vsum_lo=z.clone(),
+        count_lo=z.clone(), recip_lo=z.clone())
+
+
 # ---------------------------------------------------------------- ingest
 
 def _scalar_fold(bank: TDigestBank, s, valid, dsum, dcount, drecip,
@@ -460,7 +523,10 @@ def merge_centroids(bank: TDigestBank, slots, means, weights) -> TDigestBank:
 
 def merge_scalars(bank: TDigestBank, slots, vmins, vmaxs, vsums, counts,
                   recips) -> TDigestBank:
-    """Merge exact per-slot scalar stats (min/max/sum/count/recip)."""
+    """Merge exact per-slot scalar stats (min/max/sum/count/recip) — the
+    `merge_scalar_stats` of veneur_tpu/sketches/base.py: it reads the
+    leaves by name, so the REQ engine merges through it too (the hot-slot
+    sidestep and the global tier's import landing)."""
     K = bank.num_slots
     valid = (slots >= 0) & (slots < K)
     zero = torch.zeros_like(vsums)

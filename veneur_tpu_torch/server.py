@@ -62,7 +62,7 @@ log = logging.getLogger("veneur_tpu_torch.server")
 
 _STOP = object()
 
-_ITEM_10 = "item 10, global tier"
+_ITEM_10 = "item 10.2, forward, import and proxy"
 _ITEM_9B2 = "item 9b.2, resilience and the network sinks"
 
 # (config key, refused when, ROADMAP queue A item): the keys whose value
@@ -180,7 +180,7 @@ class Server:
                     cfg.flush_file, max(1, round(cfg.interval_seconds))))
         # the fleet view behind /debug/fleet, built as the reference
         # builds it for a server with an HTTP listener (a local tier
-        # receives no forwards: it stays empty until item 10)
+        # receives no forwards: it stays empty until item 10.2)
         self.fleet = None
         if cfg.http_address:
             self.fleet = observe.FleetView(
@@ -277,7 +277,7 @@ class Server:
 
     @property
     def import_rejected(self) -> int:
-        """Always 0: the port has no import path yet (item 10)."""
+        """Always 0: the server has no import path yet (item 10.2)."""
         return self._peek("import.rejected")
 
     @property
@@ -1125,7 +1125,7 @@ class Server:
     def _fleet_cardinality(self, top: int = 50) -> dict:
         """JSON-ready per-prefix cardinality estimates: this server's
         admission-controller sketches (a local tier merges no received
-        sketches: those arrive with item 10's imports)."""
+        sketches: those arrive with item 10.2's imports)."""
         if self.admission is None:
             return {}
         from .ingest.admission import estimate_registers

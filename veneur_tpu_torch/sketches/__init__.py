@@ -60,6 +60,18 @@ def engine_stamp(heng, seng) -> str:
             f"s={seng.id}/{seng.wire_version}")
 
 
+def stamp_with_codec(stamp: str, centroid_codec: str) -> str:
+    """Fold the forward centroid codec into an engine stamp: "q16"
+    appends a "q" to the histogram component's wire version
+    ("h=tdigest/1" -> "h=tdigest/1q"), so quantized and lossless fleets
+    read as different wire formats and refuse each other before decode;
+    "lossless" returns the stamp unchanged."""
+    if centroid_codec != "q16":
+        return stamp
+    return ",".join(part + "q" if part.startswith("h=") else part
+                    for part in stamp.split(","))
+
+
 # what an unstamped (legacy) peer is running, by definition
 DEFAULT_STAMP = engine_stamp(TDigestEngine(), HLLEngine())
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+
 from ..ops import hll
 
 
@@ -25,11 +27,26 @@ class HLLEngine:
     wire_version = 1
     error_contract = "relative stderr ~1.04/sqrt(m) (LogLog-Beta)"
 
+    @property
+    def num_registers(self) -> int:
+        return 1 << self.precision
+
     def init(self, num_slots: int, device):
         return hll.init(num_slots, self.precision, device=device)
 
     def insert(self, bank, slots, reg_idx, vals):
         return hll.insert(bank, slots, reg_idx, vals)
+
+    def merge_rows(self, bank, slots, registers):
+        """Union forwarded register rows into their slots, in place."""
+        return hll.merge_rows(bank, slots, registers)
+
+    def merge_banks(self, a, b):
+        return hll.merge_banks(a, b)
+
+    def merge_registers_np(self, a, b):
+        """Host-side register union."""
+        return np.maximum(np.asarray(a, np.uint8), np.asarray(b, np.uint8))
 
     def hash_update(self, h: int) -> tuple:
         """(register index, rho) from one 64-bit member hash — the

@@ -280,6 +280,7 @@ class REQEngine:
 
     id = "req"
     wire_version = 1
+    import_strategy = "direct"    # forwarded items re-insert as points
     error_contract = ("~1% relative value error at p99.9 (protected "
                       "tail items are exact samples); mid-range "
                       "distribution-dependent; exact count/sum/min/max")
@@ -308,6 +309,16 @@ class REQEngine:
 
     def aggregates(self, bank):
         return _td.aggregates(bank)
+
+    def forward_leaves(self, bank) -> dict:
+        """The flush outputs a forwarding engine exports: the retained
+        items as weighted points, and the exact scalars."""
+        return dict(
+            h_mean=bank.value, h_weight=bank.weight,
+            h_min=bank.vmin, h_max=bank.vmax,
+            h_sum=bank.vsum, h_sum_lo=bank.vsum_lo,
+            h_count=bank.count, h_count_lo=bank.count_lo,
+            h_recip=bank.recip, h_recip_lo=bank.recip_lo)
 
     def merge_banks(self, a, b):
         """Bit-commutative union: the canonical sort of the two item sets

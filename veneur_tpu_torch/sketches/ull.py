@@ -6,7 +6,9 @@ updates at ``q-1`` (b1) and ``q-2`` (b2) were also seen. m = 2^13
 registers match the error of HLL's 2^14, so the bank is half the bytes.
 
 Register update and merge are a lattice JOIN, not a max (the state is
-only partially ordered). The batched insert is one function with two
+only partially ordered); the global tier's import joins whole
+forwarded rows into their slots the same way (`_merge_rows_impl`, eager
+torch). The batched insert is one function with two
 implementations: the CUDA scatter-join kernel for registers on the card
 (kernels/ull_insert.py, csrc/ull_insert.cu) and the plain torch version
 here, `_insert_impl`, for registers on the CPU. The JAX package's plain
@@ -137,6 +139,36 @@ def _insert_impl(bank: ULLBank, slots, reg_idx, vals) -> ULLBank:
     return bank
 
 
+def _merge_rows_impl(bank: ULLBank, slots, registers) -> ULLBank:
+    """Union forwarded register rows u8[n, m] into their slots (the
+    Combine path), in place; slot == -1 marks padding. The JAX package
+    pre-joins the rows of one slot with a segmented scan; here, as in
+    `_insert_impl`, each target row takes the closed form of the
+    multi-way join of its current row and every incoming row of its
+    slot: qm = the largest q of any operand, b1 / b2 = whether any
+    operand proves an event at qm-1 / qm-2 (bytes exact)."""
+    K, m = bank.registers.shape
+    valid = (slots >= 0) & (slots < K)
+    if not bool(valid.any()):
+        return bank
+    uniq, inv = torch.unique(slots[valid].long(), return_inverse=True)
+    U = uniq.numel()
+    x = torch.cat([bank.registers[uniq], registers[valid]]).int()
+    seg = torch.cat([torch.arange(U, device=inv.device), inv])[:, None] \
+        .expand(-1, m)
+    q = x >> 2
+    zero = torch.zeros(U, m, dtype=torch.int32, device=x.device)
+    qm = zero.scatter_reduce(0, seg, q, reduce="amax")
+    qs = qm.gather(0, seg)
+    b1 = zero.scatter_reduce(0, seg, _proves(x, q, qs - 1).int(),
+                             reduce="amax")
+    b2 = zero.scatter_reduce(0, seg, _proves(x, q, qs - 2).int(),
+                             reduce="amax")
+    out = torch.where(qm > 0, (qm << 2) | (b1 << 1) | b2, zero)
+    bank.registers[uniq] = out.to(torch.uint8)
+    return bank
+
+
 def _value_counts(registers) -> torch.Tensor:
     """u8[K, m] -> i32[K, 256] per-slot register-value histogram — the
     ML estimator's sufficient statistic (the device half of estimate)."""
@@ -243,6 +275,16 @@ class ULLEngine:
         version on the CPU. Updates the registers in place."""
         from ..kernels import ull_insert as kinsert
         return kinsert.fused_insert(bank, slots, reg_idx, vals)
+
+    def merge_rows(self, bank, slots, registers):
+        """Join forwarded register rows into their slots, in place (the
+        lattice join of whole rows, eager torch: not the insert
+        kernel)."""
+        return _merge_rows_impl(bank, slots, registers)
+
+    def merge_registers_np(self, a, b):
+        """Host-side register union (the lattice join)."""
+        return join_registers_np(a, b)
 
     def merge_banks(self, a, b):
         return ULLBank(registers=_join_i32(
