@@ -156,9 +156,45 @@ the run:
                import landing's cluster_rows and merge-and-compress ms
                (CUDA events), and the global flushes.
 
+  10. fleet   a port fleet of real Servers at the deployment defaults
+               (Config() widths): two port globals (a gRPC import
+               listener and the HTTP listener each, one worker), a port
+               ProxyServer ringing both, three port locals over UDP
+               forwarding over gRPC to the proxy (chunks of 200 metrics:
+               grpc's 4 MiB message limit) and one forwarding over HTTP
+               straight to global 1's POST /import through a scripted
+               egress whose deliveries are real POSTs (seeded ack losses,
+               503s, timeouts, and in interval 2 a partial delivery whose
+               tail replays in interval 3). Per local an interval: its
+               shard of 5000 mixed timers x 25 samples (a quarter), 2000
+               global-only counters x 4, 2000 global-only gauges, 500
+               mixed sets x 200 members (the gRPC locals' a union of 400),
+               50 local-only timers x 25 and 200 samples of a hot timer
+               every local sends; the HTTP local's keys are its own (`h.`),
+               but for the hot timer. Three intervals ticked by hand
+               (interval 2 a delta forward touching a tenth of the
+               counters and sets, interval 3 the full resync of
+               forward_full_resync_intervals 2), then one flush of each
+               global. Checked: every key's rows on the one global its ring
+               hash names (the HTTP local's on global 1), the globals'
+               rows against numpy truth over the union (phase 5's
+               contract), the locals' own rows, the exports' kinds and the
+               delta's keys, duplicates dropped by global 1's ledger and
+               its /debug/fleet import recorder, no pending spill, both
+               globals' rows bit for bit those of a zero-fault rerun of the
+               same forwards (the recorded exports through fresh
+               forwarders, proxy and globals), and the launches of each
+               step equal FLEET_LAUNCHES. Printed: each local's flush
+               (its engine phase, the export build included), its
+               export_to_metrics (or JSON body) and forward ms, each
+               global's imports a second from the first forward to
+               drain() returning, the proxy's routing ms a 1000 metrics,
+               each landing's cluster_rows and merge-and-compress ms, and
+               each global's flush with the collector's pauses.
+
 Then it prints one JSON line describing every kernel (its launches are
-those of phases 5, 7, 8 and 9, the main paths), the card's name and power
-limit as nvidia-smi reports them, and, last, the device line
+those of phases 5, 7, 8, 9 and 10, the main paths), the card's name and
+power limit as nvidia-smi reports them, and, last, the device line
 {"ok": true, "device": {...}}. Without a card, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -1515,13 +1551,15 @@ def wait_until(pred, timeout, what):
 
 def send_paced(srv, dgrams):
     """Send every datagram to the server's UDP port in bursts of at most a
-    quarter of its socket's receive buffer, each followed by a wait until
-    the server has received every datagram sent and its worker queues are
-    under half full: loopback drops what overflows the buffer, and a full
-    worker queue drops lines."""
+    quarter of its socket's receive buffer and half a worker queue's
+    lines, each followed by a wait until the server has received every
+    datagram sent and its worker queues are under half full: loopback
+    drops what overflows the buffer, and a full worker queue drops lines
+    (a burst of short lines can hold more lines than a queue)."""
     rcvbuf = srv._sockets[0].getsockopt(socket.SOL_SOCKET,
                                         socket.SO_RCVBUF)
     budget = max(4 * 4096, rcvbuf // 4)
+    max_lines = min(q.maxsize for q in srv.worker_queues) // 2
     dest = ("127.0.0.1", srv.bound_port())
     sent = 0
 
@@ -1532,11 +1570,13 @@ def send_paced(srv, dgrams):
     with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
         i = 0
         while i < len(dgrams):
-            burst = 0
-            while i < len(dgrams) and (burst == 0 or
-                                       burst + len(dgrams[i]) <= budget):
+            burst = lines = 0
+            while i < len(dgrams) and (burst == 0 or (
+                    burst + len(dgrams[i]) <= budget
+                    and lines + dgrams[i].count(b"\n") + 1 <= max_lines)):
                 sock.sendto(dgrams[i], dest)
                 burst += len(dgrams[i])
+                lines += dgrams[i].count(b"\n") + 1
                 i += 1
             sent = i
             wait_until(settled, 120, f"{sent} datagrams received")
@@ -2317,7 +2357,9 @@ class LandingProbe:
     them (CUDA events on the card, the host clock on the CPU), with the
     arms (sorted_prefix) it ran, its digests and its compress launches.
     Keeps the set bank the last set landing returned (`set_bank`: the
-    interval's bank, retired by the flush, with every row landed)."""
+    interval's bank, retired by the flush, with every row landed). Only
+    the landing thread's cluster_rows calls count toward its landing:
+    two globals' workers may land at once, each under its own probe."""
 
     def __init__(self, eng, device):
         from veneur_tpu_torch import kernels
@@ -2325,11 +2367,13 @@ class LandingProbe:
         self.records = []
         self._eng, self._device = eng, device
         self._kernels, self._td = kernels, tdigest
-        self._real_cluster = tdigest.cluster_rows
         self._cur = None
+        self._thread = None
         self.set_bank = None
 
     def __enter__(self):
+        # probes nest: each calls through the one entered before it
+        self._real_cluster = self._td.cluster_rows
         self._td.cluster_rows = self._cluster
         self._real_land = self._eng._land_import_centroids
         self._eng._land_import_centroids = self._land
@@ -2366,7 +2410,8 @@ class LandingProbe:
         t0 = self._mark()
         out = self._real_cluster(values, weights, *args,
                                  sorted_prefix=sorted_prefix, **kw)
-        if self._cur is not None:
+        if self._cur is not None and \
+                threading.get_ident() == self._thread:
             self._cur["calls"].append((t0, self._mark(), sorted_prefix,
                                        tuple(values.shape)))
         return out
@@ -2375,6 +2420,7 @@ class LandingProbe:
         if not items:
             return self._real_land(bank, items, dirty)
         self._cur = rec = {"calls": []}
+        self._thread = threading.get_ident()
         before = self._kernels.launches["compress"]
         t0 = self._mark()
         out = self._real_land(bank, items, dirty)
@@ -2750,6 +2796,645 @@ def phase_global(device, cfg_kw=None, plan=None, hot_cfg_kw=None):
     return out
 
 
+# ------------------------------------------------------------- phase 10
+
+# a port fleet on the card: each local's traffic an interval. Timers:
+# `timers` keys x samples an interval, the sample columns split four
+# ways, one shard a local; global-only counters (keys, samples) and
+# gauges; mixed sets (keys, members a local, offset between the gRPC
+# locals: local j sends members j*offset ... j*offset + members - 1, a
+# union); local-only timers (keys, samples); the hot timer's samples a
+# local. In intervals 2 and 3 the locals touch `touch` of their counters
+# and sets, and everything else as in interval 1.
+FLEET_PLAN = {"timers": (5000, 25), "counters": (2000, 4), "gauges": 2000,
+              "sets": (500, 200, 100), "local_timers": (50, 25),
+              "hot": 200, "touch": 0.1}
+FLEET_INTERVALS = 3
+FLEET_GRPC_LOCALS = 3
+# the HTTP local's egress schedule, one an interval (utils/faults.py
+# steps; the last step of each repeats): seeded ack losses, 503s,
+# refusals, timeouts and slow sends, each chunk delivered within its
+# interval by the retry ladder (max_attempts 8); in interval 2 chunk 1
+# is applied and its ack lost, then times out to the end of its ladder:
+# a partial delivery whose tail (chunk 1 again, and chunk 2) replays in
+# interval 3 under its original ids, where the global drops chunk 1.
+FLEET_RETRY_ATTEMPTS = 8
+# gRPC chunks: grpc's default 4 MiB receive limit holds 200 metrics of
+# 16 KiB HLL rows (GrpcForwarder chunks by metric count, 10,000 by
+# default)
+FLEET_GRPC_BATCH = 200
+
+
+def fleet_schedules():
+    from veneur_tpu_torch.utils.faults import seeded_schedule
+    return (seeded_schedule(1001, FLEET_RETRY_ATTEMPTS, p_fail=0.6,
+                            ambiguous=True),
+            ["ok", "ack_lost", "timeout"],
+            seeded_schedule(1003, FLEET_RETRY_ATTEMPTS, p_fail=0.6,
+                            ambiguous=True))
+
+
+# phase 10's launches, predicted from the code before the first chip run
+# (PERF.md section 6). Construction: six engines (2 globals, 4 locals),
+# a probe each. Ingest: none (no slot takes more than 200 < B samples an
+# interval). A local's flush: the incremental work set, a compress and
+# an hll_stats, and in its first flush one each more for the baseline
+# rows. A global lands its staged digests every 8192, two compresses a
+# landing (C = B = 256): the timer names are chosen so the ring homes
+# 2500 of them on each global and the hot timer on global 1, so global 1
+# stages 3 x 2501 + 5001 (the HTTP local) = 12504 digests an interval and
+# global 2 3 x 2500 = 7500; the HTTP local's delivery delays only
+# counters and gauges, so both streams, and their landings, are the same
+# in the zero-fault rerun. Cumulative: global 1 lands at 8192 (R1),
+# 16384 and 24576 (R2), 32768 (R3); global 2 at 8192 (R2) and 16384
+# (R3). Each global's one flush: the remainder's landing (2), the
+# baseline and the work set (1 + 1), hll_stats 2.
+FLEET_LAUNCHES = {
+    "construction": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                     "probe": 6},
+    "R1 ingest": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                  "probe": 0},
+    "R1 forward": {"compress": 10, "hll_stats": 8, "ull_insert": 0,
+                   "probe": 0},
+    "R2 ingest": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                  "probe": 0},
+    "R2 forward": {"compress": 10, "hll_stats": 4, "ull_insert": 0,
+                   "probe": 0},
+    "R3 ingest": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
+                  "probe": 0},
+    "R3 forward": {"compress": 8, "hll_stats": 4, "ull_insert": 0,
+                   "probe": 0},
+    "global flush": {"compress": 8, "hll_stats": 4, "ull_insert": 0,
+                     "probe": 0},
+    "rerun construction": {"compress": 0, "hll_stats": 0,
+                           "ull_insert": 0, "probe": 2},
+    "rerun R1": {"compress": 2, "hll_stats": 0, "ull_insert": 0,
+                 "probe": 0},
+    "rerun R2": {"compress": 6, "hll_stats": 0, "ull_insert": 0,
+                 "probe": 0},
+    "rerun R3": {"compress": 4, "hll_stats": 0, "ull_insert": 0,
+                 "probe": 0},
+    "rerun flush": {"compress": 8, "hll_stats": 4, "ull_insert": 0,
+                    "probe": 0},
+}
+
+
+class _RoundTransport:
+    """Mutable slot: each interval installs its scripted schedule on the
+    HTTP local's one Egress."""
+
+    def __init__(self):
+        self.current = None
+
+    def __call__(self, req, timeout=None):
+        return self.current(req, timeout=timeout)
+
+
+class _RecordingForwarder:
+    """Stands between a local Server and its ResilientForwarder: keeps a
+    copy of each interval's export as the server hands it over (for the
+    zero-fault rerun and the delta checks) and the time of each call;
+    everything else is the ResilientForwarder's."""
+
+    def __init__(self, rf):
+        self.rf = rf
+        self.exports = []
+        self.calls = []
+
+    def __call__(self, export):
+        from veneur_tpu_torch.models.pipeline import ForwardExport
+        self.exports.append(ForwardExport(
+            histograms=list(export.histograms), sets=list(export.sets),
+            counters=list(export.counters), gauges=list(export.gauges),
+            set_engine=export.set_engine, kind=export.kind))
+        t0 = time.perf_counter()
+        try:
+            return self.rf(export)
+        finally:
+            self.calls.append((t0, time.perf_counter()))
+
+    def __getattr__(self, name):
+        return getattr(self.rf, name)
+
+
+def fleet_names(ring, dests, plan):
+    """The gRPC locals' timer names, 2500 (half) homed on each global by
+    the proxy's ring, and the hot timer's, homed on global 1 (the HTTP
+    local, which bypasses the proxy, sends it there too)."""
+    nt = plan["timers"][0]
+    per = {d: [] for d in dests}
+    i = 0
+    while min(len(v) for v in per.values()) < nt // 2:
+        name = f"g.t{i}"
+        owner = ring.get(f"{name}timer".encode())
+        if len(per[owner]) < nt // 2:
+            per[owner].append(name)
+        i += 1
+    i = 0
+    while ring.get(f"g.hot{i}timer".encode()) != dests[0]:
+        i += 1
+    return {"g": per[dests[0]] + per[dests[1]],
+            "h": [f"h.t{i}" for i in range(nt)], "hot": f"g.hot{i}"}
+
+
+def fleet_lines(rng, plan, names, j, r):
+    """Local j's DogStatsD lines of interval r, shuffled (j ==
+    FLEET_GRPC_LOCALS is the HTTP local, the `h.` keys)."""
+    http = j == FLEET_GRPC_LOCALS
+    pre = "h" if http else "g"
+    timers = names[pre]
+    per = plan["timers"][1]
+    cols = len(np.array_split(np.arange(per), FLEET_GRPC_LOCALS + 1)[j])
+    vals = rng.lognormal(3, 1, (len(timers), cols))
+    lines = [f"{n}:{v:.4f}|ms" for n, row in zip(timers, vals) for v in row]
+    nc, cper = plan["counters"]
+    touch = plan["touch"]
+    for i in range(nc if r == 0 else round(nc * touch)):
+        lines += [f"{pre}.c{i}:{v}|c|#veneurglobalonly"
+                  for v in rng.integers(1, 100, cper)]
+    lines += [f"{pre}.g{i}:{v:.3f}|g|#veneurglobalonly"
+              for i, v in enumerate(rng.normal(0, 100, plan["gauges"]))]
+    ns, members, offset = plan["sets"]
+    first = 0 if http else j * offset
+    for i in range(ns if r == 0 else round(ns * touch)):
+        lines += [f"{pre}.s{i}:u{m}|s"
+                  for m in range(first, first + members)]
+    nl, lper = plan["local_timers"]
+    lines += [f"{pre}.l{i}:{v:.4f}|ms|#veneurlocalonly"
+              for i in range(nl) for v in rng.lognormal(2, 1, lper)]
+    lines += [f"{names['hot']}:{v:.4f}|ms"
+              for v in rng.lognormal(4, 0.5, plan["hot"])]
+    return [lines[i].encode() for i in rng.permutation(len(lines))]
+
+
+def http_body_bound(plan):
+    """The HTTP local's jsonmetric-v1 chunk size: interval 2's export
+    (every timer and the hot key, the touched sets, then counters and
+    gauges) splits so chunks 0 and 1 hold every digest and set row and
+    chunk 2 only counters and gauges — so its tail, delivered an
+    interval late, moves no digest."""
+    nt = plan["timers"][0]
+    sets = round(plan["sets"][0] * plan["touch"])
+    return -(-(nt + 1 + sets) // 2)
+
+
+def fleet_truth(lines_by_local):
+    """The forwarded union's truth (local-only timers left out)."""
+    from veneur_tpu_torch.ingest.parser import parse_packet
+    truth = Truth()
+    for lines in lines_by_local:
+        for ln in lines:
+            if b"veneurlocalonly" not in ln:
+                truth.add_parsed(parse_packet(ln))
+    return truth
+
+
+def _split_truth(truth, owner_of):
+    """One Truth a global, by each key's owner."""
+    out = [Truth(), Truth()]
+    for kind in ("histo", "counter", "gauge", "sets"):
+        for key, v in getattr(truth, kind).items():
+            getattr(out[owner_of(key[0])], kind)[key] = v
+    return out
+
+
+def _fleet_global(device, cfg_kw, registry):
+    from veneur_tpu_torch.cluster.importsrv import DedupeLedger
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.basic import CaptureMetricSink
+    cfg = Config(statsd_listen_addresses=[], interval="3600s",
+                 hostname="global", grpc_listen_addresses=["127.0.0.1:0"],
+                 http_address="127.0.0.1:0", num_workers=1,
+                 **(cfg_kw or {}))
+    srv = Server(cfg, sinks=[CaptureMetricSink()], device=device)
+    # a ledger of its own registry: the duplicates this run drops
+    srv.dedupe_ledger = DedupeLedger(registry=registry)
+    return srv
+
+
+def _counting_submit(srv, counts):
+    real = srv._submit_import
+
+    def submit(digest, item):
+        counts[id(srv)] = counts.get(id(srv), 0) + 1
+        real(digest, item)
+    srv._submit_import = submit
+
+
+def _fleet_rows(frameset):
+    return [m for m in frameset if not m.name.startswith("veneur.")]
+
+
+def phase_fleet(device, cfg_kw=None, plan=None):
+    """A port fleet on `device`: two port globals (gRPC and HTTP import
+    listeners, one worker each), a port ProxyServer ringing both, three
+    port locals over UDP forwarding over gRPC to the proxy and one
+    forwarding over HTTP straight to global 1's /import through a
+    scripted egress whose deliveries are real POSTs; three intervals
+    ticked by hand, the globals flushed once at the end. Checked: every
+    key on the one global its ring names (the HTTP local's on global 1),
+    the globals' rows against numpy truth over the union, the locals'
+    own rows, the exports' kinds (full, delta, full resync), the ledger's
+    dropped duplicates, no pending spill, every row of both globals bit
+    for bit equal to a zero-fault rerun of the same forwards (the
+    recorded exports through fresh forwarders, proxy and globals), and,
+    on the card, the launches of each step against FLEET_LAUNCHES.
+    `cfg_kw` and `plan` override the widths and the traffic (CPU
+    rehearsals at small shapes)."""
+    import random
+
+    from veneur_tpu_torch import kernels, observe
+    from veneur_tpu_torch.cluster import wire
+    from veneur_tpu_torch.cluster.discovery import StaticDiscoverer
+    from veneur_tpu_torch.cluster.forward import (GrpcForwarder,
+                                                  HttpJsonForwarder)
+    from veneur_tpu_torch.cluster.proxy import ProxyServer
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.resilience import (BreakerPolicy, Egress,
+                                             EgressPolicy,
+                                             ResilienceRegistry,
+                                             ResilientForwarder,
+                                             RetryPolicy)
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.basic import CaptureMetricSink
+    from veneur_tpu_torch.utils.faults import FakeClock, ScriptedTransport
+    plan = plan or FLEET_PLAN
+    rng = np.random.default_rng(23)
+    launches, out = {}, {"rounds": []}
+
+    def counted(label, fn):
+        before = dict(kernels.launches)
+        r = fn()
+        step = launches.setdefault(label, dict.fromkeys(kernels.launches, 0))
+        for k, n in kernels.launches.items():
+            step[k] += n - before[k]
+        return r
+
+    reg = ResilienceRegistry()
+    kernels.reset_launches()
+    globs, loc_srvs = [], []
+    proxy = None
+    imported = {}
+    try:
+        globs = counted("construction", lambda: [
+            _fleet_global(device, cfg_kw, reg) for _ in range(2)])
+        for g in globs:
+            _counting_submit(g, imported)
+            g.start()
+        dests = [f"127.0.0.1:{g.grpc_port}" for g in globs]
+        proxy = ProxyServer(StaticDiscoverer(dests),
+                            refresh_interval_s=3600)
+        route = {"ms": 0.0, "metrics": 0}
+        real_route = proxy.route_metrics
+
+        def timed_route(metrics):
+            t0 = time.perf_counter()
+            try:
+                return real_route(metrics)
+            finally:
+                route["ms"] += (time.perf_counter() - t0) * 1e3
+                route["metrics"] += len(metrics)
+        proxy.route_metrics = timed_route
+        _server, proxy_port = proxy.start("127.0.0.1:0")
+        base = dict(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                    interval="3600s", num_workers=1, num_readers=1,
+                    forward_full_resync_intervals=2, **(cfg_kw or {}))
+        loc_srvs = counted("construction", lambda: [
+            Server(Config(hostname=f"local{j}",
+                          forward_address=f"127.0.0.1:{proxy_port}", **base),
+                   sinks=[CaptureMetricSink()], device=device)
+            for j in range(FLEET_GRPC_LOCALS)] + [
+            Server(Config(hostname="local-http",
+                          forward_address="http://127.0.0.1:"
+                                          f"{globs[0].http_api.port}",
+                          forward_use_grpc=False,
+                          flush_max_per_body=http_body_bound(plan), **base),
+                   sinks=[CaptureMetricSink()], device=device)])
+        for loc in loc_srvs[:FLEET_GRPC_LOCALS]:
+            loc.forwarder.inner.max_per_batch = FLEET_GRPC_BATCH
+        # the HTTP local's egress: the scripted schedule of the interval,
+        # its deliveries real POSTs, its backoff on an injected clock
+        clock = FakeClock()
+        rt = _RoundTransport()
+        http_loc = loc_srvs[FLEET_GRPC_LOCALS]
+        http_loc.forwarder.inner._egress = Egress(
+            "fleet-http", transport=rt, clock=clock, sleep=clock.sleep,
+            rng=random.Random(42), policy=EgressPolicy(
+                retry=RetryPolicy(max_attempts=FLEET_RETRY_ATTEMPTS,
+                                  base_backoff_s=0.001, max_backoff_s=0.002,
+                                  deadline_s=1000.0),
+                breaker=BreakerPolicy(failure_threshold=10_000)))
+        # each ladder behind a recorder
+        for loc in loc_srvs:
+            loc.forwarder = _RecordingForwarder(loc.forwarder)
+            loc.start()
+        names = fleet_names(proxy.ring, dests, plan)
+
+        def deliver(req):
+            import urllib.request
+            return urllib.request.urlopen(req, timeout=60)
+
+        # the patched hooks time export_to_metrics (gRPC locals) and the
+        # JSON body build (the HTTP local) inside each local's forward
+        enc = {"ms": 0.0}
+        real_e2m = wire.export_to_metrics
+
+        def timed_e2m(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real_e2m(*a, **kw)
+            finally:
+                enc["ms"] += (time.perf_counter() - t0) * 1e3
+        wire.export_to_metrics = timed_e2m
+        real_body = http_loc.forwarder.inner._body_entries
+
+        def timed_body(export):
+            t0 = time.perf_counter()
+            try:
+                return real_body(export)
+            finally:
+                enc["ms"] += (time.perf_counter() - t0) * 1e3
+        http_loc.forwarder.inner._body_entries = timed_body
+
+        schedules = fleet_schedules()
+        all_lines = [[] for _ in loc_srvs]
+        probes = [LandingProbe(g.engines[0], device) for g in globs]
+        for p in probes:
+            p.__enter__()
+        try:
+            for r in range(FLEET_INTERVALS):
+                lines = [fleet_lines(rng, plan, names, j, r)
+                         for j in range(len(loc_srvs))]
+                for j, ls in enumerate(lines):
+                    all_lines[j].extend(ls)
+                dgrams = [pack_datagrams(ls, loc.cfg.metric_max_length)
+                          for ls, loc in zip(lines, loc_srvs)]
+
+                def ingest():
+                    t0 = time.perf_counter()
+                    for loc, dg in zip(loc_srvs, dgrams):
+                        send_paced(loc, dg)
+                        check(loc.drain(timeout=120), "drain() timed out")
+                        check(loc.queue_drops == 0 and loc.parse_errors == 0,
+                              f"fleet {loc.hostname}: {loc.queue_drops} "
+                              f"lines dropped, {loc.parse_errors} bad")
+                    return time.perf_counter() - t0
+
+                rec = {"ingest_s": counted(f"R{r + 1} ingest", ingest),
+                       "lines": sum(len(ls) for ls in lines),
+                       "datagrams": sum(len(d) for d in dgrams)}
+                rt.current = ScriptedTransport(schedules[r], clock,
+                                               deliver=deliver)
+                before = dict(imported)
+                flushes = []
+
+                def forward():
+                    for j, loc in enumerate(loc_srvs):
+                        enc["ms"] = 0.0
+                        with GcPauses() as gcp:
+                            t0 = time.perf_counter()
+                            loc.flush_once(timestamp=3000 + 10 * r)
+                            wall = (time.perf_counter() - t0) * 1e3
+                        tick = loc.flight.debug_state()["tick_count"]
+                        flushes.append({
+                            "local": j, "wall_ms": wall, "gc_ms": gcp.ms,
+                            "engine_ms": tick_phase_ms(loc, tick, "engine"),
+                            "forward_ms": tick_phase_ms(loc, tick,
+                                                        "forward"),
+                            "encode_ms": enc["ms"],
+                            "kind": loc.forwarder.exports[-1].kind})
+                    for g in globs:
+                        check(g.drain(timeout=300), "global drain() timed "
+                                                    "out")
+                    return time.perf_counter()
+
+                t_end = counted(f"R{r + 1} forward", forward)
+                t_first = min(loc.forwarder.calls[-1][0]
+                              for loc in loc_srvs)
+                rec["locals"] = flushes
+                rec["import_s"] = t_end - t_first
+                rec["imported"] = [imported.get(id(g), 0)
+                                   - before.get(id(g), 0) for g in globs]
+                out["rounds"].append(rec)
+            flush_out = []
+
+            def flush_globals():
+                for g in globs:
+                    with GcPauses() as gcp:
+                        t0 = time.perf_counter()
+                        fs = g.flush_once(timestamp=4000)
+                        wall = (time.perf_counter() - t0) * 1e3
+                    rows = {m.name: m for m in fs}
+                    flush_out.append({
+                        "frameset": fs, "wall_ms": wall, "gc_ms": gcp.ms,
+                        **{k: rows[f"veneur.flush.{k}_duration_ns"].value
+                           / 1e6 for k in ("total", "swap", "merge",
+                                           "assembly")}})
+
+            counted("global flush", flush_globals)
+        finally:
+            for p in reversed(probes):
+                p.__exit__(None, None, None)
+            wire.export_to_metrics = real_e2m
+        out["landings"] = [p.records for p in probes]
+        out["globals"] = [{k: v for k, v in f.items() if k != "frameset"}
+                          for f in flush_out]
+        out["proxy_route_ms_per_1000"] = (route["ms"]
+                                          / max(route["metrics"], 1) * 1e3)
+        out["proxy_metrics"] = route["metrics"]
+
+        for loc in loc_srvs:
+            check(loc.sinks[0].wait_for_flush(FLEET_INTERVALS, timeout=120),
+                  "fleet: a local's sink missed a flush")
+            for t in list(loc._sink_inflight.values()):
+                t.join(120)
+        # -- checks: ring routing and truth
+        owner = {}
+        for n in names["g"] + [names["hot"]]:
+            owner[n] = dests.index(proxy.ring.get(f"{n}timer".encode()))
+
+        def owner_of(name):
+            if name.startswith("h.") or name == names["hot"]:
+                return 0
+            if name in owner:
+                return owner[name]
+            mtype = {"c": "counter", "g": "gauge", "s": "set"}[
+                name.split(".")[1][0]]
+            return dests.index(proxy.ring.get(f"{name}{mtype}".encode()))
+
+        truths = _split_truth(fleet_truth(all_lines), owner_of)
+        out["worst"] = []
+        for i, (g, f) in enumerate(zip(globs, flush_out)):
+            data = _fleet_rows(f["frameset"])
+            res = types.SimpleNamespace(metrics=data, frame=data)
+            out["worst"].append(check_against_truth(
+                res, truths[i], g.engines[0], f"fleet global {i + 1}"))
+        # the locals' own rows: mixed timers their aggregates only,
+        # local-only timers in full
+        for j, loc in enumerate(loc_srvs):
+            pre = "h" if j == FLEET_GRPC_LOCALS else "g"
+            rows = {m.name for fl in loc.sinks[0].flushes for m in fl}
+            t0 = names[pre][0]
+            check(f"{t0}.count" in rows and f"{t0}.max" in rows
+                  and f"{t0}.50percentile" not in rows,
+                  f"fleet local {j}: mixed timer rows")
+            check(f"{pre}.l0.50percentile" in rows,
+                  f"fleet local {j}: local-only timer not flushed in full")
+            check(not any(n.startswith((f"{pre}.c", f"{pre}.s"))
+                          for n in rows),
+                  f"fleet local {j}: a global-only or mixed set row")
+        # the exports' kinds and the delta's keys
+        nc, ns = plan["counters"][0], plan["sets"][0]
+        touched_c = round(nc * plan["touch"])
+        touched_s = round(ns * plan["touch"])
+        for j, loc in enumerate(loc_srvs):
+            ex = loc.forwarder.exports
+            check([e.kind for e in ex] == ["full", "delta", "full"],
+                  f"fleet local {j}: export kinds {[e.kind for e in ex]}")
+            check(len(ex[1].counters) == touched_c
+                  and len(ex[1].sets) == touched_s,
+                  f"fleet local {j}: delta shipped {len(ex[1].counters)} "
+                  f"counters and {len(ex[1].sets)} sets")
+            check(len(ex[2].counters) == nc and len(ex[2].sets) == ns,
+                  f"fleet local {j}: the resync shipped "
+                  f"{len(ex[2].counters)} counters, {len(ex[2].sets)} sets")
+            check(loc.forwarder.pending_spill == 0,
+                  f"fleet local {j}: {loc.forwarder.pending_spill} "
+                  "sketches pending")
+        dups = reg.peek("import", "forward.duplicates_dropped")
+        out["duplicates_dropped"] = dups
+        check(dups > 0, "fleet: the dedupe ledger dropped no duplicate")
+        status, body = http_get(globs[0].http_api.port, "/debug/fleet")
+        fleet = json.loads(body)
+        check(status == 200 and fleet["import_recorder"] is not None,
+              "fleet: /debug/fleet has no import recorder")
+        sender = http_loc.forwarder.sender_id
+        check(fleet["senders"].get(sender, {}).get("dedupe_watermark", 0)
+              > 0, f"fleet: no watermark for the HTTP local {sender}")
+        out["rows"] = [len(_fleet_rows(f["frameset"])) for f in flush_out]
+        faulty = [sorted((m.name, tuple(m.tags), str(m.type), m.value)
+                         for m in _fleet_rows(f["frameset"]))
+                  for f in flush_out]
+        exports = [loc.forwarder.exports for loc in loc_srvs]
+    finally:
+        t0 = time.monotonic()
+        for s in loc_srvs:
+            s.stop()
+        if proxy is not None:
+            proxy.stop()
+        for g in globs:
+            g.stop()
+        out["stop_s"] = time.monotonic() - t0
+
+    # -- the zero-fault rerun: the recorded exports, in the same order,
+    # through fresh forwarders, a fresh proxy (ringed on the first run's
+    # destinations, so each key goes where it went) and fresh globals
+    reg2 = ResilienceRegistry()
+    globs2 = counted("rerun construction",
+                     lambda: [_fleet_global(device, cfg_kw, reg2)
+                              for _ in range(2)])
+    proxy2 = None
+    rfs = []
+    try:
+        for g in globs2:
+            g.start()
+        addr = {d: f"127.0.0.1:{g.grpc_port}" for d, g in zip(dests, globs2)}
+        proxy2 = ProxyServer(StaticDiscoverer(dests),
+                             refresh_interval_s=3600,
+                             forwarder_factory=lambda d: GrpcForwarder(
+                                 addr[d]))
+        _s2, port2 = proxy2.start("127.0.0.1:0")
+        for j in range(FLEET_GRPC_LOCALS):
+            rfs.append(ResilientForwarder(GrpcForwarder(
+                f"127.0.0.1:{port2}", max_per_batch=FLEET_GRPC_BATCH,
+                engine_stamp=loc_srvs[j].engine_stamp),
+                destination=f"rerun-{j}"))
+        rfs.append(ResilientForwarder(HttpJsonForwarder(
+            f"http://127.0.0.1:{globs2[0].http_api.port}",
+            max_per_body=http_body_bound(plan),
+            engine_stamp=http_loc.engine_stamp), destination="rerun-http"))
+        for r in range(FLEET_INTERVALS):
+            def replay(r=r):
+                for rf, ex in zip(rfs, exports):
+                    rf(ex[r])
+                for g in globs2:
+                    check(g.drain(timeout=300), "rerun drain() timed out")
+            counted(f"rerun R{r + 1}", replay)
+        oracle = []
+
+        def flush_rerun():
+            for g in globs2:
+                oracle.append(sorted(
+                    (m.name, tuple(m.tags), str(m.type), m.value)
+                    for m in _fleet_rows(g.flush_once(timestamp=4000))))
+        counted("rerun flush", flush_rerun)
+        check(reg2.peek("import", "forward.duplicates_dropped") == 0,
+              "fleet rerun: a duplicate without a fault")
+        for i in range(2):
+            check(faulty[i] == oracle[i],
+                  f"fleet global {i + 1}: {len(faulty[i])} rows, not bit "
+                  f"for bit the zero-fault rerun's {len(oracle[i])}")
+    finally:
+        for rf in rfs:
+            rf.close()
+        if proxy2 is not None:
+            proxy2.stop()
+        for g in globs2:
+            g.stop()
+    check(out["stop_s"] < 30.0, f"fleet stop took {out['stop_s']:.1f} s")
+    out["launches_by_step"] = launches
+    out["launches"] = {k: sum(step[k] for step in launches.values())
+                       for k in kernels.launches}
+    print(f"fleet launches: {json.dumps(launches)}")
+    if device.type == "cuda":
+        check(launches == FLEET_LAUNCHES,
+              f"fleet launches {launches}, predicted {FLEET_LAUNCHES}")
+    print(f"fleet: {json.dumps(out)}")
+    return out
+
+
+def print_fleet_timings(f, card):
+    """Phase 10's times, a line each, with the card."""
+    for i, rec in enumerate(f["rounds"]):
+        print(f"timing fleet R{i + 1} ingest: {rec['lines']} lines in "
+              f"{rec['datagrams']} datagrams to 4 locals in "
+              f"{rec['ingest_s']:.3f} s (paced) | {card}")
+        for loc in rec["locals"]:
+            kind = "JSON body" if loc["local"] == FLEET_GRPC_LOCALS \
+                else "export_to_metrics"
+            print(f"timing fleet R{i + 1} local {loc['local']} flush "
+                  f"({loc['kind']}): {loc['wall_ms']:.2f} ms, engine "
+                  f"(export build included) {loc['engine_ms']:.2f} ms, "
+                  f"forward {loc['forward_ms']:.2f} ms ({kind} "
+                  f"{loc['encode_ms']:.2f} ms), gc {loc['gc_ms']:.2f} ms "
+                  f"| {card}")
+        for g, n in enumerate(rec["imported"]):
+            print(f"timing fleet R{i + 1} global {g + 1}: {n} metrics "
+                  f"imported, {n / rec['import_s']:.0f} metrics/s from the "
+                  f"first forward to drain() returning "
+                  f"({rec['import_s']:.3f} s) | {card}")
+    print(f"timing fleet proxy: {f['proxy_metrics']} metrics routed, "
+          f"{f['proxy_route_ms_per_1000']:.3f} ms a 1000 | {card}")
+    for g, lands in enumerate(f["landings"]):
+        for i, land in enumerate(lands):
+            each = ", ".join(f"{ms:.2f}" for ms in
+                             land["cluster_rows_ms_each"])
+            print(f"timing fleet global {g + 1} landing {i}: "
+                  f"{land['digests']} digests, cluster_rows "
+                  f"{land['cluster_rows_ms']:.2f} ms ({each}) over "
+                  f"{land['shapes']}, merge and compress "
+                  f"{land['merge_compress_ms']:.2f} ms, wall "
+                  f"{land['wall_ms']:.2f} ms | {card}")
+    for g, rec in enumerate(f["globals"]):
+        print(f"timing fleet global {g + 1} flush: wall "
+              f"{rec['wall_ms']:.2f} ms (total {rec['total']:.2f}, swap "
+              f"{rec['swap']:.2f}, merge {rec['merge']:.2f}, assembly "
+              f"{rec['assembly']:.2f}), gc {rec['gc_ms']:.2f} ms, "
+              f"{f['rows'][g]} rows, kernel launches "
+              f"{f['launches_by_step']['global flush']} (both) | {card}")
+
+
 # ------------------------------------------------------------- main
 
 # (name, source, the TPU kernel it replaces, the phase holding it
@@ -2846,6 +3531,7 @@ def main() -> int:
     cli = ph.run("server cli", phase_server_cli, device)
     ssf_out = ph.run("ssf+overload", phase_ssf_overload, device)
     glob_out = ph.run("global tier", phase_global, device)
+    fleet_out = ph.run("fleet", phase_fleet, device)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}",
               file=sys.stderr)
@@ -2950,7 +3636,8 @@ def main() -> int:
               f"{' (under the profiler capture)' if label == 'T1' else ''}"
               f" | {card}")
     print_global_timings(glob_out, card)
-    paths = [*main_out.values(), server, ssf_out, glob_out]
+    print_fleet_timings(fleet_out, card)
+    paths = [*main_out.values(), server, ssf_out, glob_out, fleet_out]
     kernels = []
     for name, source, replaces, phase, timed in KERNELS:
         t = timing[timed]

@@ -1,4 +1,4 @@
-"""chip_smoke.py's phases 4-9 rehearsed on the CPU at small shapes.
+"""chip_smoke.py's phases 4-10 rehearsed on the CPU at small shapes.
 
 On the CPU every kernel wrapper runs its plain version, so these show
 that the script's cases, checks, timings and reports run end to end and
@@ -233,3 +233,76 @@ def test_global_launch_table_follows_the_plan():
     assert table["G2 flush"]["compress"] == 2 + 1
     assert table["G4 locals"]["ull_insert"] == 8 * p["req_locals"]
     assert sum(s["probe"] for s in table.values()) == senders + 1 + 3
+
+
+FLEET_PLAN = {"timers": (300, 25), "counters": (60, 4), "gauges": 60,
+              "sets": (20, 200, 100), "local_timers": (5, 25), "hot": 200,
+              "touch": 0.1}
+
+
+def test_phase_fleet_rehearsal(monkeypatch, one_torch_thread):
+    """Phase 10 at small widths and traffic: two port globals, a port
+    proxy, three gRPC locals and an HTTP local through the scripted
+    egress, three intervals; rows against numpy truth, the exports'
+    kinds, duplicates dropped, no pending spill, and both globals bit
+    for bit a zero-fault rerun. The import stage lands every 256
+    digests here, so landings fall inside intervals as the full plan's
+    do at 8192 (the launch check: on the card)."""
+    from veneur_tpu_torch.models import pipeline
+    monkeypatch.setattr(pipeline, "_IMPORT_STAGE_DIGESTS", 256)
+    cfg_kw = {"tpu_histogram_slots": 1024, "tpu_counter_slots": 256,
+              "tpu_gauge_slots": 256, "tpu_set_slots": 64,
+              "tpu_batch_size": 1024}
+    out = cs.phase_fleet(CPU, cfg_kw=cfg_kw, plan=FLEET_PLAN)
+    assert len(out["rounds"]) == cs.FLEET_INTERVALS
+    assert out["duplicates_dropped"] > 0
+    for rec in out["rounds"]:
+        assert [loc["local"] for loc in rec["locals"]] == [0, 1, 2, 3]
+    assert [loc["kind"] for rec in out["rounds"]
+            for loc in rec["locals"][:1]] == ["full", "delta", "full"]
+    # landings fell inside the intervals and in each global's flush
+    assert all(len(lands) >= 3 for lands in out["landings"])
+    assert all(w["pct_err_over_spread"] <= 0.01 + 1e-6
+               for w in out["worst"])
+    assert out["proxy_metrics"] > 0
+    cs.print_fleet_timings(out, "cpu")
+    assert all(n == 0 for n in out["launches"].values())
+    assert set(out["launches_by_step"]) == set(cs.FLEET_LAUNCHES)
+
+
+def test_fleet_launch_table_follows_the_plan():
+    """Every step of phase 10's table names every kernel, and its counts
+    follow from FLEET_PLAN as PERF.md derives them: a probe an engine;
+    a local's flush one compress and one hll_stats (two of each in its
+    first); two compresses a global landing, every 8192 digests staged
+    (global 1: 3 x 2501 + 5001 an interval, global 2: 3 x 2500) and the
+    remainder in the flush with the baseline and the work set; the
+    rerun the same landings."""
+    from veneur_tpu_torch.models import pipeline
+    names = {k[0] for k in cs.KERNELS}
+    table = cs.FLEET_LAUNCHES
+    assert all(set(step) == names for step in table.values())
+    n = cs.FLEET_GRPC_LOCALS + 1
+    nt = cs.FLEET_PLAN["timers"][0]
+    per_round = [cs.FLEET_GRPC_LOCALS * (nt // 2 + 1) + nt + 1,
+                 cs.FLEET_GRPC_LOCALS * (nt // 2)]
+    stage = pipeline._IMPORT_STAGE_DIGESTS
+    landings = []
+    for r in range(cs.FLEET_INTERVALS):
+        landings.append(sum((r + 1) * d // stage - r * d // stage
+                            for d in per_round))
+    assert all(cs.FLEET_INTERVALS * d % stage for d in per_round)
+    for r in range(cs.FLEET_INTERVALS):
+        local_c = (2 if r == 0 else 1) * n
+        assert table[f"R{r + 1} ingest"] == dict.fromkeys(names, 0)
+        assert table[f"R{r + 1} forward"] == {
+            "compress": local_c + 2 * landings[r], "hll_stats": local_c,
+            "ull_insert": 0, "probe": 0}
+        assert table[f"rerun R{r + 1}"] == {
+            "compress": 2 * landings[r], "hll_stats": 0, "ull_insert": 0,
+            "probe": 0}
+    for label in ("global flush", "rerun flush"):
+        assert table[label] == {"compress": 2 * (2 + 2), "hll_stats": 4,
+                                "ull_insert": 0, "probe": 0}
+    assert table["construction"]["probe"] == 2 + n
+    assert table["rerun construction"]["probe"] == 2

@@ -284,20 +284,31 @@ def test_features_outside_the_slice_are_refused(override):
     ("is_global", "is_global", True)])
 def test_global_tier_flags_construct_and_the_server_refuses_them(
         flag, server_key, value):
-    """The engine takes the global tier's flags since the engine and the
-    wire are ported; the server, which has no forwarder or import server
-    yet, still refuses the config key that would turn them on."""
+    """The engine takes the global tier's flags; since the forwarder and
+    the import server are ported, the server no longer refuses the
+    config key that turns them on: it sets the flag on its engines and
+    builds the forwarder or the dedupe ledger."""
     from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.resilience import ResilientForwarder
     from veneur_tpu_torch.server import Server
     eng = tpipe.AggregationEngine(tpipe.EngineConfig(**CFG, **{flag: True}),
                                   device="cpu")
     assert getattr(eng.cfg, flag) is True
     assert eng._fwd_out == (flag == "forward_enabled")
-    cfg = Config(aggregation_backend="cpu")
+    cfg = Config(aggregation_backend="cpu", tpu_histogram_slots=256,
+                 tpu_counter_slots=128, tpu_gauge_slots=128,
+                 tpu_set_slots=64, tpu_batch_size=256,
+                 forward_use_grpc=False)
     setattr(cfg, server_key, value)
-    with pytest.raises(NotImplementedError, match="item 10.2") as e:
-        Server(cfg)
-    assert server_key in str(e.value)
+    srv = Server(cfg)
+    try:
+        assert all(getattr(e.cfg, flag) is True for e in srv.engines)
+        if flag == "forward_enabled":
+            assert isinstance(srv.forwarder, ResilientForwarder)
+        else:
+            assert srv.dedupe_ledger is not None and srv.forwarder is None
+    finally:
+        srv.stop()
 
 
 @pytest.mark.parametrize("override", [

@@ -1,7 +1,7 @@
 """The port's ops HTTP routes against the reference's, on a running port
 server and a running reference server: status codes and bodies, the JSON
 keys of /healthz, /debug/flush and /debug/fleet; POST /import answers
-501 on the port, naming ROADMAP item 10."""
+as the reference's does (an empty JSONMetric list imports nothing)."""
 
 import json
 import socket
@@ -94,12 +94,16 @@ def test_json_routes_have_the_references_keys(ports, path):
             {n for n in jnames if n.startswith("engine.")}
         assert set(t["sketch_engines"]) == set(j["sketch_engines"])
         assert t["sketch_engines"]["stamp"] == j["sketch_engines"]["stamp"]
-        # ROADMAP queue C: with an HTTP listener the reference keeps a
-        # dedupe ledger for POST /import; the port refuses imports
-        assert j["dedupe_ledger"] is not None and t["dedupe_ledger"] is None
+        # with an HTTP listener both keep a dedupe ledger for POST
+        # /import (ROADMAP queue C.5, closed)
+        assert t["dedupe_ledger"] is not None
+        assert t["dedupe_ledger"] == j["dedupe_ledger"]
     else:
         assert t["senders"] == j["senders"] == {}
         assert set(t["health"]) == set(j["health"])
+        # the import recorder is the observer's state on both
+        assert t["import_recorder"] is not None
+        assert set(t["import_recorder"]) == set(j["import_recorder"])
 
 
 def test_debug_threads_dumps_every_thread(ports):
@@ -111,7 +115,10 @@ def test_debug_threads_dumps_every_thread(ports):
 
 
 def test_import_answers_501_naming_item_10(ports):
-    _, tport = ports
+    """POST /import is ported: the port answers as the reference does
+    (it no longer answers 501)."""
+    jport, tport = ports
     code, body = _request(tport, "/import", method="POST")
-    assert code == 501 and b"item 10" in body
+    assert (code, body) == _request(jport, "/import", method="POST")
+    assert code == 200 and json.loads(body) == {"imported": 0}
     assert _request(tport, "/other", method="POST") == (404, b"not found\n")

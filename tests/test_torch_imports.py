@@ -4,11 +4,14 @@ Importing every module of veneur_tpu_torch, and chip_smoke.py, pulls in
 neither jax nor any veneur_tpu module (checked in a fresh interpreter).
 Only the generated `*_pb2` modules and `cluster/wire.py`, which turns
 forward exports into metricpb bytes, import google.protobuf at module
-level: every other module imports it inside the functions that handle a
-span or an import (the engine imports the wire inside `import_list`), so
-importing them all pulls in no yaml, protobuf or grpc, and a
-DogStatsD-only server that starts, takes a datagram and flushes imports
-no protobuf either. chip_smoke.py refuses to run without a card or
+level: every other module imports it, and grpc, inside the functions
+that handle a span, forward or import (the engine imports the wire
+inside `import_list`, the forwarders, import server and proxy inside
+their calls), so importing them all pulls in no yaml, protobuf or grpc,
+and a DogStatsD-only server — its HTTP listener with the dedupe ledger
+included — that starts, takes a datagram and flushes imports neither
+protobuf nor grpc. The HTTP API no longer carries the "not ported"
+answer to POST /import. chip_smoke.py refuses to run without a card or
 without the package beside it, and then prints no result.
 """
 
@@ -70,8 +73,9 @@ srv.flush_once(timestamp=1)
 assert cap.wait_for_flush(1)
 srv.stop()
 assert {m.name: m.value for m in cap.flushes[0]}["only.c"] == 3.0
+assert srv.dedupe_ledger is not None
 print(",".join(sorted(m for m in sys.modules
-                      if m.startswith("google.protobuf"))))
+                      if m.startswith(("google.protobuf", "grpc")))))
 """
 
 # the server's path: each must be among the modules imported above
@@ -98,6 +102,16 @@ GLOBAL_PATH = ("veneur_tpu_torch.cluster", "veneur_tpu_torch.cluster.wire",
                "veneur_tpu_torch.cluster.protos.forward_pb2",
                "veneur_tpu_torch.models.pipeline")
 
+# the global tier over the network: each must be among the modules
+# imported above
+NETWORK_PATH = ("veneur_tpu_torch.resilience",
+                "veneur_tpu_torch.utils.faults",
+                "veneur_tpu_torch.cluster.discovery",
+                "veneur_tpu_torch.cluster.forward",
+                "veneur_tpu_torch.cluster.importsrv",
+                "veneur_tpu_torch.cluster.proxy",
+                "veneur_tpu_torch.cli.proxy")
+
 
 def _clean_env():
     env = dict(os.environ)
@@ -115,6 +129,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(names) >= 30
     assert set(SERVER_PATH) <= set(names)
     assert set(GLOBAL_PATH) <= set(names)
+    assert set(NETWORK_PATH) <= set(names)
     assert bad == "", f"JAX-side modules imported: {bad}"
     assert absent == "", f"yaml/protobuf/grpc imported: {absent}"
 
@@ -125,6 +140,16 @@ def test_statsd_only_server_imports_no_protobuf():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().split("\n")[-1] == ""
+
+
+def test_http_api_no_longer_answers_not_ported():
+    """POST /import is ported: the 501 answer and its text are gone."""
+    import inspect
+
+    from veneur_tpu_torch import http_api
+    src = inspect.getsource(http_api)
+    assert "501" not in src and "IMPORT_NOT_PORTED" not in src
+    assert "not ported" not in src
 
 
 def _run_chip_smoke(cwd):

@@ -363,7 +363,7 @@ def test_default_backend_needs_a_card():
 
 _REFUSED_VALUES = {
     "history_retention_generations": 3, "tpu_num_devices": 2,
-    "tpu_flush_fetch": "staged", "grpc_listen_addresses": ["tcp://:1"]}
+    "tpu_flush_fetch": "staged"}
 
 
 @pytest.mark.parametrize(

@@ -289,6 +289,10 @@ class ForwardExport:
     # which set engine produced `sets` (selects the register wire code);
     # histograms are engine-agnostic weighted points on the wire
     set_engine: str = "hll"
+    # the admission controller's per-prefix cardinality sketches riding
+    # to the global tier, [(prefix, bytes registers)]: the server fills
+    # them in at forward time (advisory, merged by max at the receiver)
+    prefix_sketches: list = dc_field(default_factory=list)
     # "full": every interned global counter and forwarded set ships,
     # idle ones as zero totals / empty registers (the receiver's liveness
     # refresh); "delta": only the keys the dirty bitmap saw land this

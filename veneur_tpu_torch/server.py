@@ -1,5 +1,6 @@
 """The Server: listeners + sharded engines + flush loop + watchdog — the
-local tier of veneur_tpu/server.py, over the port's AggregationEngine.
+local and global tiers of veneur_tpu/server.py, over the port's
+AggregationEngine.
 
 Parity: server.go (sym: Server, NewFromConfig, Server.Start,
 Server.HandleMetricPacket, Server.ReadMetricSocket, Server.Shutdown),
@@ -23,9 +24,16 @@ Threading model (the reference's, unchanged):
     hash-space shards, so flush is a union, never a merge. On the card
     every launch goes to the current (default) stream; the engine's lock
     orders `process` against the flush's bank swap.
+  * The global tier's gRPC import handlers and the HTTP POST /import
+    handlers only decode, dedupe and enqueue: each imported metric goes
+    to the worker queue its digest names, and the worker thread lands
+    it in its engine (staged digests every 8192 launch compress there).
+    No handler thread touches a bank.
   * One flush thread ticks every `interval`, flushes all engines (in
     threads when there are several), fans out to sinks (a thread per
-    sink) and plugins.
+    sink) and plugins, then hands the merged export to the forwarder
+    (a `resilience.ResilientForwarder`: exactly-once envelopes, the
+    replay ladder and the spill tier).
   * A watchdog thread counts overdue ticks and, when configured, exits
     the process for its supervisor to restart.
 
@@ -33,10 +41,11 @@ The device is the caller's `device`, else "cpu" when
 `aggregation_backend: cpu`, else "cuda" — which raises where there is no
 card, as AggregationEngine does. With an SSF UDP listener the server
 traces its own flushes through it. Config keys this port cannot honour
-yet (forwarding and the global tier, durability, the network sinks,
-native ingest, several devices, the relayed-backend fetch modes) are
-refused at construction with NotImplementedError naming their ROADMAP
-item (`REFUSED_KEYS`), never ignored.
+yet (durability, the network sinks, native ingest, several devices, the
+relayed-backend fetch modes) are refused at construction with
+NotImplementedError naming their ROADMAP item (`REFUSED_KEYS`), never
+ignored. The forwarders, the import server and their wire (grpc,
+google.protobuf) are imported only when the config needs them.
 """
 
 from __future__ import annotations
@@ -48,11 +57,12 @@ import socket
 import threading
 import time
 
-from . import observe
-from .config import Config
+from . import observe, resilience, sketches
+from .config import Config, _parse_interval
 from .ingest import parser
 from .metrics import FrameSet, InterMetric, MetricType
-from .models.pipeline import AggregationEngine, EngineConfig, _not_ported
+from .models.pipeline import (AggregationEngine, EngineConfig,
+                              ForwardExport, _not_ported)
 from .sinks import MetricSink
 from .sinks.basic import (BlackholeMetricSink, BlackholeSpanSink,
                           DebugMetricSink, LocalFilePlugin)
@@ -62,16 +72,11 @@ log = logging.getLogger("veneur_tpu_torch.server")
 
 _STOP = object()
 
-_ITEM_10 = "item 10.2, forward, import and proxy"
-_ITEM_9B2 = "item 9b.2, resilience and the network sinks"
+_ITEM_9B2 = "item 9b.2, the network sinks"
 
 # (config key, refused when, ROADMAP queue A item): the keys whose value
 # this port cannot honour yet
 REFUSED_KEYS = (
-    ("forward_address", bool, _ITEM_10),
-    ("consul_forward_service_name", bool, _ITEM_10),
-    ("grpc_listen_addresses", bool, _ITEM_10),
-    ("is_global", bool, _ITEM_10),
     ("durability_enabled", bool, "item 11, durability and /query"),
     ("history_retention_generations", lambda v: v > 0,
      "item 11, durability and /query"),
@@ -94,6 +99,16 @@ REFUSED_KEYS = (
 )
 
 
+def _fold_rewrite(pb, fr) -> int:
+    """Apply an ImportFoldReroute's rewrite to the pb IN PLACE (the fold
+    key is tagless by construction) and return the fold key's digest,
+    the single-homed fold routing basis. One definition for both worker
+    arms that re-route a fold."""
+    pb.name = fr.key.name
+    del pb.tags[:]
+    return fr.digest
+
+
 def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError for the first config key whose value the
     port cannot honour."""
@@ -110,7 +125,12 @@ def refuse_unported(cfg: Config) -> None:
 
 class Server:
     def __init__(self, cfg: Config, sinks: list[MetricSink] | None = None,
-                 plugins=None, device=None, span_sinks=None):
+                 plugins=None, device=None, span_sinks=None,
+                 forwarder=None):
+        """`forwarder` (optional): a callable(ForwardExport) to forward
+        each interval through, in place of the one the config names
+        (`forward_address` or `consul_forward_service_name`); either is
+        wrapped in a ResilientForwarder unless it already is one."""
         refuse_unported(cfg)
         if not cfg.tpu_flush_double_buffer:
             log.info("tpu_flush_double_buffer: false — the port's flush is "
@@ -140,6 +160,10 @@ class Server:
             idle_ttl_intervals=cfg.tpu_slot_idle_ttl_intervals,
             flush_incremental=cfg.tpu_flush_incremental,
             flush_incremental_threshold=cfg.tpu_flush_incremental_threshold,
+            forward_enabled=bool(cfg.forward_address
+                                 or cfg.consul_forward_service_name),
+            # a server with a gRPC import listener is (also) a global tier
+            is_global=cfg.is_global or bool(cfg.grpc_listen_addresses),
             hostname=self.hostname,
         )
         self.engines = [AggregationEngine(EngineConfig(**ecfg_kw),
@@ -148,9 +172,15 @@ class Server:
         self.device = self.engines[0].device
         self.worker_queues: list[queue.Queue] = [
             queue.Queue(maxsize=65536) for _ in range(n_workers)]
-        # the sketch-engine/wire stamp (no forward codec: forwarding is
-        # refused above)
-        self.engine_stamp = self.engines[0].engine_stamp
+        # the sketch-engine/wire stamp, declared on every forwarded chunk
+        # and enforced on every import request; the forward centroid
+        # codec folds in, so a q16 fleet reads as a distinct wire format
+        self.engine_stamp = sketches.stamp_with_codec(
+            self.engines[0].engine_stamp, cfg.forward_centroid_codec)
+        # fleet-wide per-prefix cardinality: received sketches merge by
+        # max here, keyed by prefix; /debug/fleet serves the estimates
+        self._fleet_sketch_lock = threading.Lock()
+        self._fleet_sketches: dict[str, bytearray] = {}
         # per-server telemetry registry (two servers in one process never
         # cross-count); _self_metrics drains it and the process default
         self.telemetry = observe.TelemetryRegistry()
@@ -170,6 +200,10 @@ class Server:
                 eng.attach_admission(self.admission, index=i,
                                      n=len(self.engines),
                                      reroute=self._route_metric)
+        # one shared egress policy (retry/breaker knobs) for every
+        # config-built forwarder; per-destination breakers live inside
+        # each Egress
+        self._egress_policy = resilience.policy_from_config(cfg)
         self.sinks = sinks if sinks is not None else self._sinks_from_config()
         if plugins is not None:
             self.plugins = plugins
@@ -178,14 +212,67 @@ class Server:
             if cfg.flush_file:
                 self.plugins.append(LocalFilePlugin(
                     cfg.flush_file, max(1, round(cfg.interval_seconds))))
-        # the fleet view behind /debug/fleet, built as the reference
-        # builds it for a server with an HTTP listener (a local tier
-        # receives no forwards: it stays empty until item 10.2)
+        if forwarder is None:
+            forwarder = self._forwarder_from_config()
+        if forwarder is not None and not isinstance(
+                forwarder, resilience.ResilientForwarder):
+            # lossless-forward contract: a failed interval's sketches
+            # are parked under their envelope and replayed, or spilled
+            # and re-merged into the next flush, never dropped. No
+            # journal: that arm is ROADMAP item 11 (durability_enabled
+            # is refused above).
+            forwarder = resilience.ResilientForwarder(
+                forwarder,
+                destination=(cfg.forward_address
+                             or cfg.consul_forward_service_name
+                             or "forward"),
+                max_spill_sketches=cfg.spill_max_sketches,
+                gauge_max_age_intervals=cfg.spill_gauge_max_age_intervals,
+                max_spill_intervals=cfg.spill_max_intervals,
+                sender_id=(cfg.forward_sender_id
+                           or resilience.new_sender_id(self.hostname)),
+                # one wall budget for the whole replay ladder (plus the
+                # current send's own retry_deadline)
+                replay_budget_s=2 * _parse_interval(cfg.retry_deadline),
+                # the flush asks next_forward_kind() what to build
+                delta_enabled=cfg.forward_delta,
+                full_resync_intervals=cfg.forward_full_resync_intervals)
+        self.forwarder = forwarder   # callable(ForwardExport) or None
+        # receiver side of the exactly-once contract: one dedupe ledger
+        # shared by the gRPC import server and HTTP POST /import, so a
+        # sender that fails over between them still dedupes
+        self.dedupe_ledger = None
+        receives = bool(cfg.grpc_listen_addresses or cfg.http_address
+                        or cfg.is_global)
+        if cfg.forward_dedupe_enabled and receives:
+            from .cluster.importsrv import DedupeLedger
+            self.dedupe_ledger = DedupeLedger(
+                max_seqs_per_sender=cfg.forward_dedupe_max_seqs_per_sender,
+                max_senders=cfg.forward_dedupe_max_senders,
+                ttl_s=_parse_interval(cfg.forward_dedupe_ttl))
+        # the receiving tier's fleet view (per-sender e2e and freshness,
+        # behind /debug/fleet) and the import observer that phase-
+        # attributes each import request and parents its spans on the
+        # sender's flush span: observability only, admission and apply
+        # are the same with it on or off
         self.fleet = None
-        if cfg.http_address:
+        self.import_observer = None
+        if receives:
             self.fleet = observe.FleetView(
                 max_senders=cfg.fleet_max_senders,
                 window=cfg.fleet_e2e_window)
+            import_ring = None
+            if cfg.flight_recorder:
+                import_ring = observe.FlightRecorder(
+                    capacity=cfg.flight_recorder_ticks, max_phases=16)
+            self.import_observer = observe.ImportObserver(
+                fleet=self.fleet, flight=import_ring,
+                client=lambda: self.trace_client)
+        self._grpc_servers = []
+        self.grpc_port = None     # the last gRPC import listener's port
+        # the last interval's forward bytes by destination (under
+        # _stats_lock)
+        self._last_forward_bytes = None
         # tags_exclude strips tag names before key construction; the
         # parser bounds reject over-long names and tags (counted)
         self._exclude_tags = frozenset(cfg.tags_exclude) or None
@@ -277,7 +364,8 @@ class Server:
 
     @property
     def import_rejected(self) -> int:
-        """Always 0: the server has no import path yet (item 10.2)."""
+        """Imported metrics this interval rejected as unroutable or
+        corrupt (the poison-pill guards)."""
         return self._peek("import.rejected")
 
     @property
@@ -300,6 +388,36 @@ class Server:
         if self.cfg.debug:
             out.append(BlackholeSpanSink())
         return out
+
+    def _forwarder_from_config(self):
+        """The leaf forwarder the config names: gRPC or HTTP to
+        `forward_address`, or a Consul-discovered destination; None
+        when the server forwards nothing."""
+        cfg = self.cfg
+        common = dict(timeout_s=cfg.flush_timeout_seconds,
+                      egress_policy=self._egress_policy,
+                      engine_stamp=self.engine_stamp,
+                      centroid_codec=cfg.forward_centroid_codec)
+        if cfg.forward_address:
+            if cfg.forward_use_grpc:
+                from .cluster.forward import GrpcForwarder
+                return GrpcForwarder(cfg.forward_address, **common)
+            from .cluster.forward import HttpJsonForwarder
+            return HttpJsonForwarder(cfg.forward_address,
+                                     max_per_body=cfg.flush_max_per_body,
+                                     **common)
+        if cfg.consul_forward_service_name:
+            # discover the global tier via Consul and re-resolve on the
+            # refresh interval (consul.go; Server.RefreshDestinations)
+            from .cluster.discovery import ConsulDiscoverer
+            from .cluster.forward import DiscoveringForwarder
+            return DiscoveringForwarder(
+                ConsulDiscoverer(), cfg.consul_forward_service_name,
+                refresh_interval_s=_parse_interval(
+                    cfg.consul_refresh_interval),
+                use_grpc=cfg.forward_use_grpc,
+                max_per_body=cfg.flush_max_per_body, **common)
+        return None
 
     # ------------- lifecycle -------------
 
@@ -325,6 +443,8 @@ class Server:
                 f"udp://127.0.0.1:{self._ssf_udp_sock.getsockname()[1]}")
         if self.cfg.enable_profiling:
             self._start_profiling()
+        for addr in self.cfg.grpc_listen_addresses:
+            self._start_import_listener(addr)
         for ss in self.span_sinks:
             try:
                 ss.start()
@@ -349,13 +469,30 @@ class Server:
         self._threads.append(t)
         return t
 
-    def stop(self, timeout: float = 10.0):
+    def stop(self, timeout: float = 10.0, *, grace: float | None = None,
+             clock=time.monotonic, sleep=time.sleep):
         """Stop every listener, worker and thread this server started,
-        waiting at most `timeout` seconds for them in all."""
+        waiting at most `timeout` seconds for them in all. The gRPC
+        import listeners reject new RPCs at once and give in-flight ones
+        up to `grace` seconds (default: the lesser of 2 s and the
+        interval) to reach the worker queues before the dedupe ledger is
+        torn down; `clock` and `sleep` are injectable so the grace-expiry
+        path is testable without real waiting."""
         deadline = time.monotonic() + timeout
         self._stop.set()
         if self.http_api is not None:
             self.http_api.stop()
+        if self._grpc_servers:
+            from .cluster.importsrv import stop_import_server
+            if grace is None:
+                grace = min(2.0, self.cfg.interval_seconds)
+            for g in self._grpc_servers:
+                try:
+                    stop_import_server(g, grace, clock=clock, sleep=sleep)
+                except Exception:
+                    log.exception("import server failed to stop")
+        if self.dedupe_ledger is not None:
+            self.dedupe_ledger.clear()   # torn down only after drain
         if self._profile_server is not None:
             self._profile_server.stop()
         with self._conns_lock:
@@ -397,6 +534,17 @@ class Server:
             self._stats_sock.close()
         with self._conns_lock:
             readers = list(self._stream_conns.values())
+        # the flusher is the forwarder's only caller: close it (its gRPC
+        # channel) once that thread is gone
+        flusher = [t for t in self._threads if t.name == "flusher"]
+        for t in flusher:
+            t.join(max(0.0, deadline - time.monotonic()))
+        close = getattr(self.forwarder, "close", None)
+        if close is not None and not any(t.is_alive() for t in flusher):
+            try:
+                close()
+            except Exception:
+                log.exception("forwarder failed to close")
         for t in self._threads + readers:
             t.join(max(0.0, deadline - time.monotonic()))
         alive = [t.name for t in self._threads + readers if t.is_alive()]
@@ -670,11 +818,40 @@ class Server:
         except queue.Full:
             self._count("worker.dropped")
 
+    def _submit_import(self, digest: int, imported):
+        """Queue one imported metric (an importsrv.ImportedMetric) on the
+        worker its digest names: the handler threads only enqueue, the
+        worker lands it in its engine. Drop-on-full, counted."""
+        try:
+            self.worker_queues[digest % len(self.worker_queues)] \
+                .put_nowait(imported)
+        except queue.Full:
+            self._count("worker.dropped")
+
+    def _start_import_listener(self, addr: str):
+        """Global-mode gRPC receive path (importsrv): forwarded metrics
+        are re-hashed onto the worker queues and merged via Combine."""
+        from .cluster.importsrv import start_import_server
+
+        server, port = start_import_server(
+            addr, self._submit_import, ledger=self.dedupe_ledger,
+            observer=self.import_observer,
+            engine_stamp=self.engine_stamp,
+            note_stamp=self._note_sketch_stamp,
+            merge_sketches=self.merge_prefix_sketches)
+        self._grpc_servers.append(server)
+        self.grpc_port = port
+
     def _start_http_api(self, addr: str):
         """The ops HTTP listener (handlers.go): healthchecks, version,
-        /debug/flush, /debug/flush/profile and /debug/fleet; POST /import
-        answers 501 until the global tier is ported."""
+        /debug/flush, /debug/flush/profile, /debug/fleet, and the legacy
+        POST /import path, which feeds the same Combine machinery as the
+        gRPC import."""
         from .http_api import HttpApi
+
+        def submit(digest, pb):
+            from .cluster.importsrv import ImportedMetric
+            self._submit_import(digest, ImportedMetric(pb))
 
         self.http_api = HttpApi(
             addr, debug_state=self._debug_flush_state,
@@ -683,7 +860,12 @@ class Server:
             # the profiler trigger exists only when the operator opted
             # in via debug_flush_profile (a capture is a debug action)
             profile=(self.request_profile_capture
-                     if self.cfg.debug_flush_profile else None))
+                     if self.cfg.debug_flush_profile else None),
+            submit=submit, ledger=self.dedupe_ledger,
+            observer=self.import_observer,
+            engine_stamp=self.engine_stamp,
+            note_stamp=self._note_sketch_stamp,
+            merge_sketches=self.merge_prefix_sketches)
         self.http_api.start()
         self._threads.append(self.http_api.thread)
 
@@ -740,7 +922,8 @@ class Server:
         self._count("packet.received")
 
     def _worker_loop(self, idx: int, q: queue.Queue):
-        """[HOT LOOP 2] queue -> engine (Worker.Work)."""
+        """[HOT LOOP 2] queue -> engine (Worker.Work, and
+        Worker.ImportMetricGRPC for forwarded metrics)."""
         eng = self.engines[idx]
         while True:
             item = q.get()
@@ -751,10 +934,55 @@ class Server:
                     eng.process(item)
                 elif isinstance(item, parser.Event):
                     eng.process_event(item)
-                else:
+                elif isinstance(item, parser.ServiceCheck):
                     eng.process_service_check(item)
+                else:
+                    self._apply_import(eng, item)
             finally:
                 q.task_done()
+
+    def _reroute_fold(self, pb, fr, item):
+        """Overload defense: the fold key is homed on another engine —
+        rewrite the aggregate onto it and queue `item` (carrying the
+        rewritten pb) on the fold key's home worker (single-homed folds;
+        the home engine admits it as an ordinary import)."""
+        digest = _fold_rewrite(pb, fr)
+        try:
+            self.worker_queues[digest % len(self.worker_queues)] \
+                .put_nowait(item)
+        except queue.Full:
+            self._count("worker.dropped")
+
+    def _apply_import(self, eng, item):
+        """The worker's import arms: an ImportedMetric (one forwarded
+        metric) or an ImportedBatch (one op's share, applied under one
+        lock hold). Only a receiving server queues these, so the wire is
+        imported here, not by a DogStatsD-only server."""
+        from .cluster.importsrv import ImportedBatch
+        from .cluster.wire import apply_metric_to_engine
+        from .models import pipeline
+
+        if isinstance(item, ImportedBatch):
+            rerouted, rejected = eng.import_list(item.op_id, item.pbs)
+            for fr, pb in rerouted:
+                # re-routed under the SAME op id
+                self._reroute_fold(pb, fr, ImportedBatch(item.op_id, [pb]))
+            for pb, e in rejected:
+                self._count("import.rejected")
+                log.warning("rejected corrupted imported metric %r: %s",
+                            getattr(pb, "name", "?"), e)
+            return
+        # poison-pill guard: a corrupted forwarded payload (bad HLL blob,
+        # malformed centroid list) rejects THAT metric, not this worker
+        # loop — one bad sender must not starve a whole queue shard
+        try:
+            apply_metric_to_engine(eng, item.pb)
+        except pipeline.ImportFoldReroute as fr:
+            self._reroute_fold(item.pb, fr, item)
+        except Exception as e:
+            self._count("import.rejected")
+            log.warning("rejected corrupted imported metric %r: %s",
+                        getattr(item.pb, "name", "?"), e)
 
     def drain(self, timeout: float = 10.0, *, clock=time.monotonic,
               sleep=time.sleep) -> bool:
@@ -843,19 +1071,27 @@ class Server:
     def _flush_tick(self, ts: int, t0: float, tick):
         """The tick body. `tick` is the TickRecord or None."""
         frames = []
+        merged_export = ForwardExport()
         events, checks = [], []
         status_metrics = []
         eng_stats = {"samples": 0, "dropped_no_slot": 0,
                      "swap_ns": 0, "merge_ns": 0, "assembly_ns": 0}
         results: list = [None] * len(self.engines)
         eng_ph: list = [-1] * len(self.engines)
+        # delta forwarding: ask the forwarder what THIS interval's export
+        # should be — "delta" (the dirty-bitmap subset) unless a full
+        # resync is due or forced, or deltas are off
+        fkind = "full"
+        nfk = getattr(self.forwarder, "next_forward_kind", None)
+        if nfk is not None:
+            fkind = nfk()
         ep = -1 if tick is None else tick.start("engine")
 
         def _one(i, eng):
             ph = -1 if tick is None else tick.start("engine.flush", ep)
             eng_ph[i] = ph
             try:
-                results[i] = eng.flush(timestamp=ts)
+                results[i] = eng.flush(timestamp=ts, forward_kind=fkind)
             except BaseException as e:
                 results[i] = e
             finally:
@@ -888,15 +1124,28 @@ class Server:
                     tick.add("engine." + nm, p0, p1, parent=eng_ph[i])
             frames.append(res.frame)
             status_metrics.extend(res.status_metrics)
+            merged_export.histograms.extend(res.export.histograms)
+            merged_export.sets.extend(res.export.sets)
+            merged_export.counters.extend(res.export.counters)
+            merged_export.gauges.extend(res.export.gauges)
+            merged_export.set_engine = res.export.set_engine
             ev, ch = eng.drain_events()
             events.extend(ev)
             checks.extend(ch)
+        # the merged interval is a FULL resync only if EVERY engine built
+        # one; any delta share makes the payload incomplete, so it is
+        # stamped delta (the safe under-claim the forwarder's resync
+        # bookkeeping keys off)
+        merged_export.kind = ("delta" if any(
+            r.export.kind == "delta" for r in results) else "full")
         if tick is not None:
             tick.finish(ep)
 
         if self.fleet is not None:
-            # e2e boundary of the receiving tier; a local tier has no
-            # senders, so this records the phase and nothing else
+            # e2e boundary: every interval admitted before this drain is
+            # now merged into flushed state — its close stamp becomes a
+            # close->merged latency sample (LOCAL-ONLY timers, ingested
+            # next tick), and per-sender freshness rides the registry
             fp = -1 if tick is None else tick.start("fleet")
             now_ns = (tick.close_ns if tick is not None
                       else int(ts) * 1_000_000_000)
@@ -919,6 +1168,8 @@ class Server:
         self._fan_out(frameset, events, checks, tick=tick, parent=fo)
         if tick is not None:
             tick.finish(fo)
+        if self.forwarder is not None:
+            self._forward(merged_export, tick)
 
         # Overload governor boundary: adapt the shed rate from this
         # tick's wall duration (overrun = the flush can't keep up with
@@ -946,6 +1197,50 @@ class Server:
                 tick.finish(op, rate=delta["rate"],
                             overloaded=delta["overloaded"])
         return frameset
+
+    def _forward(self, merged_export, tick):
+        """Hand the interval's merged export to the forwarder, in a
+        `forward` phase. The admission controller's per-prefix
+        cardinality sketches ride along (merge-by-max at the receiver,
+        advisory). An interval with no export still forwards while
+        spilled sketches await re-merge, so they cannot strand when
+        traffic stops."""
+        if self.admission is not None:
+            merged_export.prefix_sketches = self.admission.export_sketches()
+        if not (merged_export.histograms or merged_export.sets
+                or merged_export.counters or merged_export.gauges
+                or getattr(self.forwarder, "pending_spill", 0)):
+            return
+        fw = -1 if tick is None else tick.start("forward")
+        # re-scope the tick so the ladder's attempt/replay phases nest
+        # under `forward`
+        ftok = observe.set_current_tick(tick, fw) \
+            if tick is not None else None
+        # bytes on the wire: the leaf forwarders count
+        # veneur.forward.bytes* per delivered chunk; the totals sampled
+        # around the call give THIS interval's bytes for /debug/fleet
+        reg = observe.DEFAULT_REGISTRY
+        bytes_before = reg.totals_by_name_prefix("forward.bytes")
+        try:
+            self.forwarder(merged_export)
+        except Exception:
+            # the interval is parked or spilled by the ResilientForwarder;
+            # the resilience counters carry the per-tick signal
+            log.exception("forward failed")
+        finally:
+            if ftok is not None:
+                observe.reset_current_tick(ftok)
+            if tick is not None:
+                tick.finish(fw)
+            sample = {}
+            for (scope, name), v in reg.totals_by_name_prefix(
+                    "forward.bytes").items():
+                d = v - bytes_before.get((scope, name), 0)
+                if d:
+                    sample.setdefault(scope, {})[name] = d
+        with self._stats_lock:
+            self._last_forward_bytes = {"kind": merged_export.kind,
+                                        "by_destination": sample}
 
     # ------------- on-demand torch.profiler capture -------------
     # GET /debug/flush/profile?ticks=N schedules a capture (gated by
@@ -1038,15 +1333,17 @@ class Server:
                         e)
 
     def _debug_flush_state(self) -> dict:
-        """GET /debug/flush payload: the flight-recorder ring and the
-        registry, under the reference's keys (the parts of a global or
-        durable server read None here)."""
-        return {
+        """GET /debug/flush payload: the flight-recorder ring plus the
+        forward ladder, breaker and dedupe-ledger state, under the
+        reference's keys (the durable server's parts read None here)."""
+        fwd = self.forwarder
+        state = {
             "flush_count": self.flush_count,
             "sketch_engines": self.engines[0].engines_describe(),
             "flight_recorder": (None if self.flight is None
                                 else self.flight.debug_state()),
-            "forward": None,
+            "forward": (fwd.debug_state()
+                        if hasattr(fwd, "debug_state") else None),
             # overload defense: budgets, per-prefix cardinality
             # estimates, governor rate, fold/shed counters
             "admission": (self.admission.debug_state()
@@ -1065,16 +1362,26 @@ class Server:
                 "process": observe.DEFAULT_REGISTRY.debug_state(),
             },
         }
+        if self.dedupe_ledger is not None:
+            state["dedupe_ledger"] = {
+                "size": self.dedupe_ledger.size(),
+                "senders": self.dedupe_ledger.sender_count(),
+                "watermarks": self.dedupe_ledger.max_admitted(),
+            }
+        return state
 
     # health verdict threshold: a flush is STALLED once its lag exceeds
     # this many intervals
     HEALTH_STALL_INTERVALS = 1.5
 
-    def health_state(self, now: float | None = None) -> dict:
+    def health_state(self, now: float | None = None,
+                     fwd_state: dict | None = None) -> dict:
         """Structured verdicts for GET /healthz and /ready. `healthy` is
-        false only when the flush loop is stalled; a worker queue over 90%
-        full flags `status: degraded` without failing the probe. `now` is
-        injectable."""
+        false only when the flush loop is stalled; an open forward
+        breaker, spilled sketches awaiting replay, the governor shedding
+        or a worker queue over 90% full flag `status: degraded` without
+        failing the probe. `now` is injectable; `fwd_state` lets a caller
+        that already computed the forwarder's debug_state pass it in."""
         now = time.monotonic() if now is None else now
         interval = self.cfg.interval_seconds
         lag = now - self._last_flush_ok
@@ -1086,6 +1393,17 @@ class Server:
                       "stalled_ticks_total": self.telemetry.total(
                           observe.SERVER_SCOPE, "watchdog.stalled_ticks")},
         }
+        fwd = self.forwarder
+        if fwd_state is not None or hasattr(fwd, "debug_state"):
+            st = fwd_state if fwd_state is not None else fwd.debug_state()
+            bstate = st["breaker_state"]
+            pending = st["pending_spill"]
+            checks["forward"] = {
+                "ok": bstate != "open" and not pending,
+                "breaker_state": bstate,
+                "pending_spill": pending,
+                "ladder_depth": len(st["ladder"]),
+            }
         if self.admission is not None:
             rate = self.admission.shed_rate
             checks["overload"] = {"ok": rate >= 1.0, "shed_rate": rate}
@@ -1101,48 +1419,141 @@ class Server:
             "checks": checks,
         }
 
+    def _note_sketch_stamp(self, sender_id: str, stamp, ok: bool):
+        """Record one import request's engine-stamp verdict (the gRPC and
+        HTTP paths both route here): the sender's row in the fleet view,
+        and veneur.import.engine_mismatch_total on a reject — the loud
+        half of the mixed-fleet contract."""
+        if self.fleet is not None:
+            self.fleet.note_stamp(sender_id, stamp, ok)
+        if not ok:
+            observe.DEFAULT_REGISTRY.incr("import",
+                                          "import.engine_mismatch")
+
+    # distinct prefixes the fleet cardinality map holds (a network-facing
+    # receiver stays bounded however many prefixes senders churn
+    # through); overflow rows are dropped and counted
+    MAX_FLEET_SKETCH_PREFIXES = 4096
+
+    def merge_prefix_sketches(self, items):
+        """Merge received per-prefix cardinality rows (merge-by-max,
+        idempotent under replays) into the fleet map served at
+        /debug/fleet. Prefixes past MAX_FLEET_SKETCH_PREFIXES, and rows
+        whose width differs from the held row, are dropped (counted)."""
+        dropped = 0
+        with self._fleet_sketch_lock:
+            for prefix, regs in items:
+                cur = self._fleet_sketches.get(prefix)
+                if cur is None:
+                    if len(self._fleet_sketches) \
+                            >= self.MAX_FLEET_SKETCH_PREFIXES:
+                        dropped += 1
+                        continue
+                    self._fleet_sketches[prefix] = bytearray(regs)
+                elif len(cur) != len(regs):
+                    # senders configured with different sketch_buckets
+                    # cannot merge; replacing would flip-flop the
+                    # prefix's estimate between single-sender views
+                    dropped += 1
+                else:
+                    for i, r in enumerate(regs):
+                        if r > cur[i]:
+                            cur[i] = r
+        if dropped:
+            observe.DEFAULT_REGISTRY.incr(
+                "import", "fleet.sketch_prefixes_dropped", dropped)
+
     def _debug_fleet_state(self) -> dict:
         """GET /debug/fleet payload, under the reference's keys: the
-        fleet view (empty on a local tier, which receives no forwards),
-        the engine stamp and the health verdict."""
+        per-sender fleet view (with each sender's dedupe watermark) on a
+        receiving tier, this server's own forward ladder summary on a
+        sending tier, the forward bytes, the engine stamps, the fleet
+        cardinality, the bounded import ring and the health verdict."""
         now_ns = time.time_ns()
+        senders: dict = {}
+        if self.fleet is not None:
+            senders = self.fleet.debug_state(now_ns)["senders"]
+        if self.dedupe_ledger is not None:
+            for sid, mark in self.dedupe_ledger.max_admitted().items():
+                senders.setdefault(sid, {
+                    "last_seen_age_s": None,
+                    "newest_close_ns": 0,
+                    "freshness_age_ms": None,
+                    "intervals_merged": 0,
+                    "pending": 0,
+                    "e2e_ms": {"count": 0, "p50": 0.0, "p99": 0.0},
+                })["dedupe_watermark"] = mark
+        forward = None
+        fwd_state = None
+        fwd = self.forwarder
+        if hasattr(fwd, "debug_state"):
+            fwd_state = fwd.debug_state()
+            ages = [e["age"] for e in fwd_state["ladder"]]
+            forward = {
+                "sender_id": fwd_state["sender_id"],
+                "ladder_depth": len(fwd_state["ladder"]),
+                "replay_ages": ages,
+                "oldest_replay_age": max(ages, default=0),
+                "pending_spill": fwd_state["pending_spill"],
+                "breaker_state": fwd_state["breaker_state"],
+            }
+        fbytes: dict = {}
+        for (scope, name), v in observe.DEFAULT_REGISTRY \
+                .totals_by_name_prefix("forward.bytes").items():
+            fbytes.setdefault(scope, {})[name] = v
+        with self._stats_lock:
+            last_bytes = self._last_forward_bytes
+        obs = self.import_observer
         return {
             "now_ns": now_ns,
             "flush_count": self.flush_count,
-            "senders": self.fleet.debug_state(now_ns)["senders"],
-            "forward": None,
-            "forward_bytes": {"cumulative": {}, "last_interval": None},
+            "senders": senders,
+            "forward": forward,
+            "forward_bytes": {"cumulative": fbytes,
+                              "last_interval": last_bytes},
             "sketch_engines": {
                 "local": self.engine_stamp,
                 "mismatch_rejects": observe.DEFAULT_REGISTRY.total(
                     "import", "import.engine_mismatch"),
             },
             "fleet_cardinality": self._fleet_cardinality(),
-            "import_recorder": None,
-            "health": self.health_state(),
+            "import_recorder": (obs.debug_state() if obs is not None
+                                else None),
+            "health": self.health_state(fwd_state=fwd_state),
         }
 
     def _fleet_cardinality(self, top: int = 50) -> dict:
-        """JSON-ready per-prefix cardinality estimates: this server's
-        admission-controller sketches (a local tier merges no received
-        sketches: those arrive with item 10.2's imports)."""
-        if self.admission is None:
-            return {}
+        """JSON-ready fleet-wide per-prefix cardinality estimates: the
+        received sketches merged (at read time) with this server's own
+        admission-controller sketches, so a global that also ingests
+        locally reports one number per prefix."""
         from .ingest.admission import estimate_registers
+        with self._fleet_sketch_lock:
+            merged = {p: bytes(r) for p, r in self._fleet_sketches.items()}
+        if self.admission is not None:
+            for prefix, regs in self.admission.export_sketches():
+                cur = merged.get(prefix)
+                if cur is None:
+                    merged[prefix] = bytes(regs)
+                elif len(cur) == len(regs):
+                    merged[prefix] = bytes(
+                        max(a, b) for a, b in zip(cur, regs))
+                # width mismatch: keep the fleet row (the local estimate
+                # is a subset of it), never replace
         rows = sorted(
             ((p, round(estimate_registers(r), 1))
-             for p, r in self.admission.export_sketches()),
+             for p, r in merged.items()),
             key=lambda kv: -kv[1])
         return dict(rows[:top])
 
     def _self_metrics(self, ts: int, t0: float,
-                      eng_stats: dict) -> list[InterMetric]:
+                      eng_stats: dict | None = None) -> list[InterMetric]:
         """veneur.* self-telemetry: stage the per-tick gauges/deltas into
         the registry, then drain it and the process default through the
         one name mapping in observe/registry.py."""
         tel, S = self.telemetry, observe.SERVER_SCOPE
         # the core counters report every interval, zeros included, under
-        # the reference's names (import.rejected stays zero here)
+        # the reference's names
         for name in ("packet.received", "packet.error", "worker.dropped",
                      "ssf.received", "ssf.error", "flush.error",
                      "import.rejected", "watchdog.stalled_ticks"):
@@ -1162,12 +1573,18 @@ class Server:
                           self.admission.shed_rate)
         tel.set_gauge(S, "flush.total_duration_ns",
                       (time.monotonic() - t0) * 1e9)
-        tel.mark(S, "samples.processed", eng_stats["samples"])
-        tel.mark(S, "samples.dropped_no_slot", eng_stats["dropped_no_slot"])
-        tel.set_gauge(S, "flush.swap_duration_ns", eng_stats["swap_ns"])
-        tel.set_gauge(S, "flush.merge_duration_ns", eng_stats["merge_ns"])
-        tel.set_gauge(S, "flush.assembly_duration_ns",
-                      eng_stats["assembly_ns"])
+        if self.dedupe_ledger is not None:
+            tel.set_gauge(S, "forward.dedupe_ledger_size",
+                          self.dedupe_ledger.size())
+        if eng_stats is not None:
+            tel.mark(S, "samples.processed", eng_stats["samples"])
+            tel.mark(S, "samples.dropped_no_slot",
+                     eng_stats["dropped_no_slot"])
+            tel.set_gauge(S, "flush.swap_duration_ns", eng_stats["swap_ns"])
+            tel.set_gauge(S, "flush.merge_duration_ns",
+                          eng_stats["merge_ns"])
+            tel.set_gauge(S, "flush.assembly_duration_ns",
+                          eng_stats["assembly_ns"])
         # per-sink counts/durations drain from the PREVIOUS interval's
         # fan-out (the sink threads record them as they finish)
         out = (tel.drain(ts, self.hostname)
