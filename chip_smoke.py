@@ -192,9 +192,49 @@ the run:
                each landing's cluster_rows and merge-and-compress ms, and
                each global's flush with the collector's pauses.
 
+  11. durable  a durable global at the deployment defaults (EngineConfig()
+               widths: 32768 t-digest slots at C=B=256, 4096 HLL sets at
+               p=14), fed the exports of phase 9's four locals (its
+               GLOBAL_PLAN, rerun: 20000 mixed timers x 25 in four
+               column shards, 5000 counters x 4, 5000 gauges, 1000 sets
+               x 1000 members, a hot shard of 20000 samples). 1: a global
+               engine lands all four (import_list), mid-interval its
+               checkpoint_state() is encoded through durability/records,
+               appended to an EngineJournal with its sync, loaded,
+               decoded and restored into a fresh engine on the card; both
+               flush every row bit for bit equal. Printed: the bytes, the
+               fetch, the encode, the CRC32C, the append with its sync,
+               the load and decode, the restore. 2: `python3 -m
+               veneur_tpu_torch.cli.veneur -f <yaml>` as a durable global
+               daemon (is_global, durability_enabled,
+               history_retention_generations 3, a gRPC import listener)
+               takes locals 0-1's exports over GrpcForwarder (chunks of
+               200) as interval 1, flushes it on its first tick, takes
+               locals 2-3's as interval 2 and is SIGKILLed once they are
+               acked; restarted on the same durability_dir it restores
+               the checkpoint and replays interval 2's ops through
+               import_list; its flush file's rows of both intervals are
+               bit for bit those of an uncrashed in-process twin fed the
+               same forwards. Printed: the restart from exec to /ready,
+               veneur.durability.engine_restore_ns, the ops and metrics
+               replayed. 3: a journaled sender killed between send and
+               done (the scripted kill_after_send) recovers and replays
+               its interval, the global drops every chunk of it, and the
+               global's rows are bit for bit a zero-fault oracle's. 4:
+               GET /query on the restarted daemon and on the twin over
+               the retained generations: a timer's and the hot key's
+               0.5/0.99 quantiles within the t-digest contract of numpy
+               truth over the window's union of samples, count, min,
+               max and a counter's value exact, a set under set_ok, both
+               servers' answers equal; then neither's live state moved
+               and the next live flushes hold no rows. The launches of
+               each step (the daemon's from its /debug/flush) equal
+               DURABLE_LAUNCHES. Printed: each query's wall and its
+               query.restore / merge / estimate phases from its tick.
+
 Then it prints one JSON line describing every kernel (its launches are
-those of phases 5, 7, 8, 9 and 10, the main paths), the card's name and
-power limit as nvidia-smi reports them, and, last, the device line
+those of phases 5, 7, 8, 9, 10 and 11, the main paths), the card's name
+and power limit as nvidia-smi reports them, and, last, the device line
 {"ok": true, "device": {...}}. Without a card, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -3435,6 +3475,911 @@ def print_fleet_timings(f, card):
               f"{f['launches_by_step']['global flush']} (both) | {card}")
 
 
+# ------------------------------------------------------------- phase 11
+
+# phase 11: a durable global at the deployment defaults. The four locals
+# are phase 9's (GLOBAL_PLAN: 20000 mixed timers x 25 in four column
+# shards, 5000 global-only counters x 4, 5000 gauges, 1000 mixed sets x
+# 1000 members from j*500, 100 local-only timers, a hot shard of 20000
+# samples). Step 1 lands all four exports in a global engine and
+# checkpoints it mid-interval; step 2 forwards locals 0-1's exports as
+# interval 1 and locals 2-3's as interval 2 over gRPC (chunks of 200:
+# grpc's 4 MiB limit, ROADMAP C.10) into the durable global daemon and
+# its uncrashed in-process twin; step 3 sends local 0's and local 1's
+# exports through a journaled sender killed between send and done; step
+# 4 queries step 2's generations.
+DURABLE_GRPC_BATCH = 200
+# the daemon's flush interval: interval 1's forwards and their landing
+# must fit inside incarnation A's first tick, interval 2's between its
+# first and second, and the restarted incarnation's queries between its
+# first and third ticks (every tick from its second on seals a generation
+# of the interner's table, and three are retained)
+DURABLE_DAEMON_INTERVAL_S = 15
+DURABLE_RETENTION = 3
+DURABLE_QUERIES = (("g.t7", "0.5,0.99,count,min,max"),
+                   ("g.hot", "0.5,0.99,count,min,max"),
+                   ("g.c3", "value"), ("g.s5", "cardinality"))
+
+
+def _launch_row(compress=0, hll_stats=0, ull_insert=0, probe=0):
+    return {"compress": compress, "hll_stats": hll_stats,
+            "ull_insert": ull_insert, "probe": probe}
+
+
+# phase 11's launches, predicted from the code before the first chip run
+# (PERF.md section 6). A probe an engine built, scratch and merge engines
+# included. A local: its hot shard lands through the hot-slot sidestep
+# (one compress), its one flush the baseline rows and the work set (two
+# compresses, two hll_stats). A global lands its staged digests every
+# 8192, two compresses a landing, and the remainder in its flush, which
+# adds the baseline (first flush of an engine only) and the work set; an
+# hll_stats each for the baseline and the work set. Step 1: 4 x 20001 =
+# 80004 digests, 9 landings at import; both engines flush the same
+# remainder. Step 2 an interval: 2 x 20001 = 40002 digests, 4 landings
+# at import. The restarted daemon (its own process: read from its
+# /debug/flush) lands interval 2 again in its recovery, then flushes.
+# Step 3: 20001 + 20001 digests, 2 landings each, in both globals; the
+# replayed interval is dropped whole. Step 4, each server: the first
+# query restores both generations into scratch engines (the twin
+# replays interval 2's ops on its post-flush baseline; the daemon
+# restores its post-recovery baseline, landed but for 7234 staged
+# digests) and merges the two rows in a merge engine (one landing, the
+# baseline, the work set); the later ones reuse the generations and
+# build a merge engine each: g.hot as g.t7, the counter an idle flush
+# (the baseline only), the set a work set of set rows.
+DURABLE_LAUNCHES = {
+    "locals": _launch_row(compress=12, hll_stats=8, probe=4),
+    "checkpoint construction": _launch_row(probe=1),
+    "checkpoint import": _launch_row(compress=18),
+    "checkpoint fetch": _launch_row(),
+    "restore": _launch_row(probe=1),
+    "checkpoint flush": _launch_row(compress=8, hll_stats=4),
+    "twin construction": _launch_row(probe=1),
+    "twin interval 1": _launch_row(compress=8),
+    "twin flush 1": _launch_row(compress=4, hll_stats=2),
+    "twin interval 2": _launch_row(compress=8),
+    "twin flush 2": _launch_row(compress=3, hll_stats=1),
+    "daemon restart to first flush": _launch_row(compress=12,
+                                                 hll_stats=2, probe=1),
+    "sender kill construction": _launch_row(probe=2),
+    "sender kill forwards": _launch_row(compress=16),
+    "sender kill flush": _launch_row(compress=8, hll_stats=4),
+    "twin queries": _launch_row(compress=35, hll_stats=11, probe=6),
+    "daemon queries": _launch_row(compress=27, hll_stats=11, probe=6),
+}
+
+
+def _tenant_rows(frameset):
+    """A flush's rows but the veneur.* self-metrics, canonical as the
+    flush file writes them (name, tags, type, repr of the value)."""
+    return sorted((m.name, ",".join(m.tags), m.type.name.lower(),
+                   repr(float(m.value)))
+                  for m in frameset if not m.name.startswith("veneur."))
+
+
+def _file_rows(path):
+    """{timestamp: canonical tenant rows} and {name: value} of the
+    veneur.* rows, from a LocalFilePlugin flush file."""
+    rows, own = {}, {}
+    if not os.path.exists(path):
+        return rows, own
+    with open(path) as f:
+        for line in f:
+            if not line.endswith("\n"):
+                continue
+            name, tags, mtype, _host, ts, value, _iv = \
+                line.rstrip("\n").split("\t")
+            if name.startswith("veneur."):
+                own[name] = float(value)
+            else:
+                rows.setdefault(int(ts), []).append(
+                    (name, tags, mtype, repr(float(value))))
+    return {ts: sorted(r) for ts, r in rows.items()}, own
+
+
+def _durable_locals(device, cfg_kw, plan, rng):
+    """Phase 9's four default-width locals: one interval each of its
+    shard of GLOBAL_PLAN, flushed; returns their exports and the truth
+    they were fed."""
+    from veneur_tpu_torch.models.pipeline import (AggregationEngine,
+                                                  EngineConfig)
+    n_loc, hs = plan["locals"], plan["hot_samples"]
+    nt, per = plan["timers"]
+    timers = rng.lognormal(3, 1, (nt, per)).astype(np.float32)
+    hots = rng.lognormal(3, 1, (n_loc, hs)).astype(np.float32)
+    shares = [global_interval(rng, plan, j, hots[j]) for j in range(n_loc)]
+    exports = []
+    for j in range(n_loc):
+        eng = AggregationEngine(EngineConfig(forward_enabled=True,
+                                             **cfg_kw), device=device)
+        feed_global_local(eng, shares[j], timers)
+        exports.append(eng.flush(timestamp=90).export)
+        del eng
+    return exports, {"timers": timers, "hots": hots, "shares": shares,
+                     "plan": plan}
+
+
+def _durable_truth(truth, locs):
+    """The samples, counter sums, last gauges and set cardinalities of
+    the union of the contiguous locals `locs`' exports."""
+    sh = [truth["shares"][j] for j in locs]
+    plan = truth["plan"]
+    ns, members, offset = plan["sets"]
+    cols = np.concatenate([d["timer_cols"] for d in sh])
+    return {
+        "timers": truth["timers"][:, cols],
+        "hot": np.concatenate([truth["hots"][j] for j in locs]),
+        "counters": sum(d["counters"].astype(np.float64).sum(axis=1)
+                        for d in sh),
+        "gauges": sh[-1]["gauges"],
+        "set_members": members + (max(locs) - min(locs)) * offset,
+    }
+
+
+def _serialize_export(export):
+    from veneur_tpu_torch.cluster import wire
+    from veneur_tpu_torch.cluster.protos import forward_pb2
+    return forward_pb2.MetricList(
+        metrics=wire.export_to_metrics(export)).SerializeToString()
+
+
+def _durable_checkpoint(device, cfg_kw, exports, tmp, counted, truth):
+    """Step 1: a default-width global engine lands the four exports;
+    mid-interval (after its landings, with the remainder staged) its
+    checkpoint is fetched, encoded, appended to an EngineJournal with its
+    sync, loaded, decoded and restored into a fresh engine; both flush,
+    every row equal bit for bit."""
+    from veneur_tpu_torch.durability import EngineJournal, crc32c
+    from veneur_tpu_torch.durability import records as drec
+    from veneur_tpu_torch.durability.history import \
+        collect_checkpoint_groups
+    from veneur_tpu_torch.models.pipeline import (AggregationEngine,
+                                                  EngineConfig)
+
+    def make():
+        eng = AggregationEngine(EngineConfig(is_global=True, **cfg_kw),
+                                device=device)
+        eng.enable_dirty_tracking()
+        return eng
+
+    glob = counted("checkpoint construction", make)
+    payloads = [_serialize_export(e) for e in exports]
+    imp = counted("checkpoint import",
+                  lambda: _import_all(glob, payloads, 1))
+    out = {"import": imp}
+    t = {}
+
+    def fetch():
+        t0 = time.perf_counter()
+        snap = glob.checkpoint_state()
+        t["fetch"] = (time.perf_counter() - t0) * 1e3
+        return snap
+    snap = counted("checkpoint fetch", fetch)
+    # the banks fetched as a row gather on the device (the others as
+    # whole leaves sliced on the host)
+    gathered = [kind for kind, (ids, _l) in snap["banks"].items()
+                if 0 < len(ids) < glob._delta_threshold
+                * glob._dirty[kind].size]
+    t0 = time.perf_counter()
+    recs = drec.encode_engine_checkpoint(0, 1, snap)
+    t["encode"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for rec_type, payload in recs:
+        crc32c(bytes([rec_type]) + payload)
+    t["crc32c"] = (time.perf_counter() - t0) * 1e3
+    ej = EngineJournal(os.path.join(tmp, "step1"), fsync="always")
+    ej.load_records()
+    t0 = time.perf_counter()
+    nbytes = ej.append_checkpoint(recs)
+    ej.sync()
+    t["append_sync"] = (time.perf_counter() - t0) * 1e3
+    ej.close()
+    t0 = time.perf_counter()
+    ej2 = EngineJournal(os.path.join(tmp, "step1"), fsync="always")
+    loaded = ej2.load_records()
+    ej2.close()
+    groups, _ops, torn, errors = collect_checkpoint_groups(loaded)
+    check(not torn and not errors and list(groups) == [0],
+          f"checkpoint reload: groups {list(groups)}, {torn} torn, "
+          f"{errors} undecodable")
+    g = groups[0]
+    _n, wm, gseq, fpr = g["meta"]
+    banks = {}
+    for payload in g["banks"]:
+        _i, kind, ids, leaves = drec.decode_engine_bank(
+            payload, leaf_names_of=glob.bank_leaf_names)
+        banks[kind] = (ids, leaves)
+    t["decode"] = (time.perf_counter() - t0) * 1e3
+    rest = counted("restore", make)
+
+    def restore():
+        t0 = time.perf_counter()
+        rest.restore_checkpoint(fpr, gseq, wm, g["keys"], banks,
+                                g["staged"])
+        sync(device)
+        t["restore"] = (time.perf_counter() - t0) * 1e3
+    counted("restore", restore)
+    out.update({
+        "bytes": nbytes, "records": len(recs),
+        "piles_dirty": snap["piles_dirty"],
+        "piles_total": snap["piles_total"],
+        "staged_digests": len(snap["staged"]["centroids"]),
+        "gathered": gathered,
+        "ms": t})
+    check(out["staged_digests"] > 0 and snap["piles_dirty"] > 0,
+          "step 1: the checkpoint holds no landed rows or no staged "
+          "digests (not mid-interval)")
+
+    def flush_both():
+        return glob.flush(timestamp=91), rest.flush(timestamp=91)
+    res_a, res_b = counted("checkpoint flush", flush_both)
+    check(canon(res_a) == canon(res_b),
+          "step 1: the restored engine's flush is not bit for bit the "
+          "original's")
+    rows = rows_of(res_a)
+    tr = _durable_truth(truth, list(range(len(exports))))
+    per = tr["timers"].shape[1]
+    for i in range(0, tr["timers"].shape[0], 97):
+        v = tr["timers"][i]
+        check(rows[(f"g.t{i}.count", ())].value == per
+              and rows[(f"g.t{i}.max", ())].value == float(v.max())
+              and rows[(f"g.t{i}.min", ())].value == float(v.min()),
+              f"step 1: g.t{i} count/min/max")
+    for i in range(0, len(tr["counters"]), 97):
+        check(rows[(f"g.c{i}", ())].value == tr["counters"][i],
+              f"step 1: counter g.c{i}")
+    out["rows"] = len(res_a.frame)
+    return out
+
+
+def _durable_server_cfg(srv_kw, **kw):
+    from veneur_tpu_torch.config import Config
+    return Config(**{**dict(
+        statsd_listen_addresses=[], interval="3600s", hostname="durable",
+        num_workers=1, is_global=True, flush_phase_timers=False,
+        durability_enabled=True,
+        history_retention_generations=DURABLE_RETENTION), **srv_kw, **kw})
+
+
+def _senders(addr, stamp, tag):
+    from veneur_tpu_torch.cluster.forward import GrpcForwarder
+    from veneur_tpu_torch.resilience import ResilientForwarder
+    return [ResilientForwarder(
+        GrpcForwarder(addr, max_per_batch=DURABLE_GRPC_BATCH,
+                      engine_stamp=stamp),
+        destination=f"{tag}-{j}", sender_id=f"durable-local-{j}",
+        seq_start=1) for j in range(2)]
+
+
+def _forward_interval(senders, exports):
+    t0 = time.perf_counter()
+    for rf, e in zip(senders, exports):
+        rf(e)
+    return time.perf_counter() - t0
+
+
+def _hard_kill_in_process(srv):
+    """An in-process SIGKILL: the listeners drop at once, no drain, no
+    journal close; the journal locks go as a killed process's fds do."""
+    from veneur_tpu_torch.utils.faults import kill_journal_lock
+    srv._stop.set()
+    for g in srv._grpc_servers:
+        g.stop(None)
+    if srv.http_api is not None:
+        srv.http_api.stop()
+    kill_journal_lock(srv._engine_journal)
+    kill_journal_lock(srv._dedupe_journal)
+
+
+def _daemon_yaml(path, gport, hport, ddir, flush_file, interval, srv_kw):
+    lines = [f'interval: "{interval}s"', "hostname: durable",
+             "statsd_listen_addresses: []",
+             f'grpc_listen_addresses: ["127.0.0.1:{gport}"]',
+             f'http_address: "127.0.0.1:{hport}"', "is_global: true",
+             "num_workers: 1", "flush_phase_timers: false",
+             "durability_enabled: true", f'durability_dir: "{ddir}"',
+             f"history_retention_generations: {DURABLE_RETENTION}",
+             f'flush_file: "{flush_file}"']
+    lines += [f"{k}: {json.dumps(v)}" for k, v in srv_kw.items()]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+class _Daemon:
+    """`python3 -m veneur_tpu_torch.cli.veneur -f <yaml>` in a subprocess
+    on the card, its log in a file, its HTTP listener polled."""
+
+    def __init__(self, yaml_path, log_path, hport):
+        self.hport = hport
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        self.t_exec = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "veneur_tpu_torch.cli.veneur", "-f",
+             yaml_path], cwd=ROOT, stdout=self._log,
+            stderr=subprocess.STDOUT)
+
+    def tail(self):
+        self._log.flush()
+        with open(self.log_path) as f:
+            return "".join(f.readlines()[-30:])
+
+    def get(self, path):
+        import urllib.error
+        import urllib.request
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{self.hport}{path}", timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    def wait_ready(self, timeout=300):
+        """Seconds from exec until GET /ready answers 200."""
+        deadline = time.monotonic() + timeout
+        while True:
+            check(self.proc.poll() is None,
+                  f"the daemon exited {self.proc.returncode}: {self.tail()}")
+            try:
+                if self.get("/ready")[0] == 200:
+                    return time.monotonic() - self.t_exec
+            except OSError:
+                pass
+            check(time.monotonic() < deadline,
+                  f"the daemon was not ready in {timeout} s: {self.tail()}")
+            time.sleep(0.05)
+
+    def debug(self):
+        return self.get("/debug/flush")[1]
+
+    def flush_count(self):
+        return self.debug()["flush_count"]
+
+    def wait_flushes(self, n, timeout):
+        deadline = time.monotonic() + timeout
+        while self.flush_count() < n:
+            check(self.proc.poll() is None, f"the daemon exited: "
+                  f"{self.tail()}")
+            check(time.monotonic() < deadline,
+                  f"the daemon did not flush {n} times in {timeout} s")
+            time.sleep(0.05)
+
+    def queue_empty(self):
+        return self.get("/healthz")[1]["checks"]["queues"]["fill"] == 0
+
+    def kill(self):
+        import signal
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(30)
+        self._log.close()
+
+    def stop(self):
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(10)
+        if not self._log.closed:
+            self._log.close()
+        return self.proc.returncode
+
+
+def _query_body(get, metric, q, t1):
+    status, body = get(f"/query?metric={metric}&q={q}&t0=0&t1={t1}")
+    check(status == 200, f"/query {metric} {q}: {status} {body}")
+    return body
+
+
+def _query_ticks(ticks):
+    """Each query tick's wall and its query.* phases, in ms, oldest first
+    (the flight recorder's snapshot is newest first)."""
+    out = []
+    for t in reversed(ticks):
+        ph = {p["name"]: p for p in t["phases"]}
+        if "query" not in ph:
+            continue
+        ms = {n[len("query."):] if n != "query" else "wall":
+              (p["end_ns"] - p["start_ns"]) / 1e6
+              for n, p in ph.items() if p.get("end_ns") is not None}
+        out.append(ms)
+    return out
+
+
+def _check_answers(answers, truth, seng, label):
+    """Step 4's answers against numpy truth over the window's union of
+    samples: count, min, max and the counter exact, the quantiles under
+    the t-digest contract (check_percentiles: 1% of the spread of the
+    hazen quantiles), the set under set_ok."""
+    worst = {"pct_err_over_spread": 0.0}
+    for (metric, _q), body in zip(DURABLE_QUERIES, answers):
+        res = body["results"]
+        check(body["matched_keys"] == 1, f"{label} {metric}: matched "
+              f"{body['matched_keys']} keys")
+        if metric in ("g.t7", "g.hot"):
+            v = truth["timers"][7] if metric == "g.t7" else truth["hot"]
+            check(res["count"] == float(v.size)
+                  and res["min"] == float(v.min())
+                  and res["max"] == float(v.max()),
+                  f"{label} {metric}: count/min/max {res}")
+            spread = float(v.max()) - float(v.min())
+            for q in (0.5, 0.99):
+                want = float(np.quantile(v.astype(np.float64), q,
+                                         method="hazen"))
+                got = res["quantiles"][f"{q * 100:g}"]
+                err = abs(got - want) / spread
+                worst["pct_err_over_spread"] = max(
+                    worst["pct_err_over_spread"], err)
+                check(err <= 0.01 + 1e-6, f"{label} {metric} p{q * 100:g}:"
+                      f" {got} vs {want} (spread {spread})")
+        elif metric == "g.c3":
+            check(res["value"] == float(truth["counters"][3]),
+                  f"{label} g.c3: {res['value']} vs {truth['counters'][3]}")
+        else:
+            n = truth["set_members"]
+            worst["set_rel_err"] = abs(res["cardinality"] - n) / n
+            check(set_ok(res["cardinality"], n, seng),
+                  f"{label} g.s5: {res['cardinality']} vs {n}")
+    return worst
+
+
+def _durable_twin_and_daemon(device, srv_kw, exports, truth, tmp, counted,
+                             daemon):
+    """Steps 2 and 4: the durable global (a daemon on the card, or an
+    in-process server for CPU rehearsals) takes interval 1 over gRPC and
+    flushes it, takes interval 2, is killed before its flush and
+    restarted on the same durability_dir; its flush of the recovered
+    interval must be bit for bit its uncrashed twin's. Then both answer
+    the same /query requests over the retained generations, within the
+    contract of numpy truth and equal to each other, and a live flush
+    after the queries holds no row of theirs."""
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.basic import CaptureMetricSink
+    out = {}
+    intervals = [exports[:2], exports[2:4]]
+    twin = counted("twin construction", lambda: Server(_durable_server_cfg(
+        srv_kw, grpc_listen_addresses=["127.0.0.1:0"],
+        http_address="127.0.0.1:0",
+        durability_dir=os.path.join(tmp, "twin")),
+        sinks=[CaptureMetricSink()], device=device))
+    twin.start()
+    twin_rows, twin_send = [], []
+    try:
+        senders = _senders(f"127.0.0.1:{twin.grpc_port}",
+                           twin.engine_stamp, "twin")
+        for r, ex in enumerate(intervals):
+            def send(ex=ex):
+                s = _forward_interval(senders, ex)
+                check(twin.drain(timeout=300), "twin drain() timed out")
+                return s
+            twin_send.append(counted(f"twin interval {r + 1}", send))
+            fs = counted(f"twin flush {r + 1}", lambda r=r: twin.flush_once(
+                timestamp=100 + 100 * r))
+            twin_rows.append(_tenant_rows(fs))
+        for rf in senders:
+            rf.close()
+        out["twin_send_s"] = twin_send
+        out["rows"] = [len(r) for r in twin_rows]
+
+        # -- the durable global, killed and restarted
+        gport = free_port(socket.SOCK_STREAM)
+        hport = free_port(socket.SOCK_STREAM)
+        ddir = os.path.join(tmp, "global")
+        if daemon:
+            got, rec = _daemon_kill_restart(srv_kw, intervals, twin, tmp,
+                                            gport, hport, ddir, out,
+                                            counted)
+        else:
+            got, rec = _in_process_kill_restart(device, srv_kw, intervals,
+                                                twin, gport, ddir, out,
+                                                counted)
+        b, get = rec["b"], rec["get"]
+        try:
+            check(got[0] == twin_rows[0],
+                  f"step 2: the daemon's first flush ({len(got[0])} rows) is"
+                  f" not bit for bit the twin's ({len(twin_rows[0])})")
+            check(got[1] == twin_rows[1],
+                  f"step 2: the restarted global's flush ({len(got[1])} "
+                  f"rows) is not bit for bit the twin's "
+                  f"({len(twin_rows[1])})")
+            # -- step 4: /query over the retained generations
+            tr = _durable_truth(truth, [0, 1, 2, 3])
+            checkpoints = [e.checkpoint_state() for e in twin.engines]
+
+            def ask(getter, t1):
+                return [_query_body(getter, m, q, t1)
+                        for m, q in DURABLE_QUERIES]
+
+            def twin_get(path):
+                return _http_json(twin.http_api.port, path)
+            t0 = time.perf_counter()
+            twin_ans = counted("twin queries", lambda: ask(twin_get, 200))
+            out["twin_query_s"] = time.perf_counter() - t0
+            before = b["launches"]()
+            t0 = time.perf_counter()
+            b_ans = ask(get, b["t1"])
+            out["daemon_query_s"] = time.perf_counter() - t0
+            b["count"]("daemon queries", before)
+            out["worst"] = _check_answers(
+                twin_ans, tr, twin.engines[0]._seng, "twin query")
+            for (m, q), x, y in zip(DURABLE_QUERIES, twin_ans, b_ans):
+                check(x["generations"]["count"] == y["generations"]["count"]
+                      == 2, f"step 4: {m}: generations {x['generations']} "
+                      f"(twin), {y['generations']} (restarted global)")
+                check(x["results"] == y["results"],
+                      f"step 4: {m} {q}: the restarted global answers "
+                      f"{y['results']}, the twin {x['results']}")
+            out["answers"] = [x["results"] for x in twin_ans]
+            out["twin_query_ticks"] = _query_ticks(twin.flight.snapshot())
+            out["daemon_query_ticks"] = _query_ticks(
+                get("/debug/flush")[1]["flight_recorder"]["ticks"])
+            # read-path isolation: the live state is the queries' neither
+            # before nor after, and the next live flushes carry none of
+            # their rows
+            after = [e.checkpoint_state() for e in twin.engines]
+            check([(c["piles_dirty"], c["last_import_op"], c["interner"])
+                   for c in checkpoints]
+                  == [(c["piles_dirty"], c["last_import_op"], c["interner"])
+                      for c in after],
+                  "step 4: the queries changed the twin's live engines")
+            check(_tenant_rows(twin.flush_once(timestamp=400)) == [],
+                  "step 4: the twin's live flush after the queries holds "
+                  "rows")
+            check(b["flush_after_queries"]() == [],
+                  "step 4: the restarted global's live flush after the "
+                  "queries holds rows")
+        finally:
+            out["daemon_exit"] = b["stop"]()
+    finally:
+        twin.stop()
+    if daemon:
+        check(out["daemon_exit"] == 0,
+              f"the restarted daemon exited {out['daemon_exit']} on SIGTERM")
+    return out
+
+
+def _http_json(port, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _daemon_kill_restart(srv_kw, intervals, twin, tmp, gport, hport, ddir,
+                         out, counted):
+    """Incarnation A takes interval 1 before its first tick and interval
+    2 after it, and is SIGKILLed once interval 2 is acked; B, on the same
+    ports and durability_dir, flushes the recovered interval on its first
+    tick. Both tick every DURABLE_DAEMON_INTERVAL_S."""
+    files = [os.path.join(tmp, f"flush-{x}.tsv") for x in "ab"]
+    yamls = [os.path.join(tmp, f"global-{x}.yaml") for x in "ab"]
+    for x in range(2):
+        _daemon_yaml(yamls[x], gport, hport, ddir, files[x],
+                     DURABLE_DAEMON_INTERVAL_S, srv_kw)
+    a = _Daemon(yamls[0], os.path.join(tmp, "global-a.log"), hport)
+    try:
+        out["a_ready_s"] = a.wait_ready()
+        senders = _senders(f"127.0.0.1:{gport}", twin.engine_stamp, "a")
+        out["a_send_s"] = [_forward_interval(senders, intervals[0])]
+        wait_until(a.queue_empty, 120, "daemon A's worker queue to empty")
+        time.sleep(1.0)        # the last metric taken off the queue lands
+        check(a.flush_count() == 0,
+              "daemon A flushed before interval 1 landed: raise "
+              "DURABLE_DAEMON_INTERVAL_S")
+        a.wait_flushes(1, 3 * DURABLE_DAEMON_INTERVAL_S)
+        out["a_send_s"].append(_forward_interval(senders, intervals[1]))
+        check(a.flush_count() == 1,
+              "daemon A flushed interval 2 before the kill: raise "
+              "DURABLE_DAEMON_INTERVAL_S")
+        for rf in senders:
+            rf.close()
+    finally:
+        a.kill()
+    rows_a, _own = _file_rows(files[0])
+    check(len(rows_a) == 1, f"daemon A flushed tenant rows at "
+          f"{len(rows_a)} timestamps")
+    b = _Daemon(yamls[1], os.path.join(tmp, "global-b.log"), hport)
+    try:
+        out["restart_ready_s"] = b.wait_ready()
+        b.wait_flushes(1, 3 * DURABLE_DAEMON_INTERVAL_S)
+
+        def first_flush():
+            rows, _own = _file_rows(files[1])
+            return rows
+        wait_until(lambda: len(first_flush()) == 1, 60,
+                   "daemon B's first flush in its flush file")
+        rows_b = first_flush()
+        dbg = b.debug()
+        rec = dbg["durability"]["engine_checkpoint"]["restore"]
+        check(rec["engines_restored"] == 1 and rec["ops_replayed"] >= 1,
+              f"daemon B's recovery: {rec}")
+        out["recovery"] = rec
+        _rows, own = _file_rows(files[1])
+        out["engine_restore_ns"] = own["veneur.durability.engine_restore_ns"]
+        launched = dbg["sketch_engines"]["kernels"]["launches"]
+        counted("daemon restart to first flush", lambda: None,
+                external=launched)
+    except Exception:
+        b.stop()
+        raise
+
+    def launches():
+        return b.debug()["sketch_engines"]["kernels"]["launches"]
+
+    def count(label, before):
+        now = launches()
+        counted(label, lambda: None,
+                external={k: now[k] - before[k] for k in now})
+
+    def flush_after_queries():
+        b.wait_flushes(b.flush_count() + 1, 3 * DURABLE_DAEMON_INTERVAL_S)
+        rows, _own = _file_rows(files[1])
+        return [r for ts, rs in rows.items() for r in rs
+                if ts != min(rows)]
+
+    # the query window ends at B's first flush: generations 1 (A's) and
+    # 2 (the recovered interval), none of the later ticks'
+    return ([next(iter(rows_a.values())), next(iter(rows_b.values()))],
+            {"b": {"launches": launches, "count": count,
+                   "flush_after_queries": flush_after_queries,
+                   "stop": b.stop, "t1": next(iter(rows_b))},
+             "get": b.get})
+
+
+def _in_process_kill_restart(device, srv_kw, intervals, twin, gport, ddir,
+                             out, counted):
+    """The CPU rehearsal of the daemon's kill: the same flow with the
+    global in-process and the kill simulated (_hard_kill_in_process)."""
+    from veneur_tpu_torch import kernels
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.basic import CaptureMetricSink
+
+    def make():
+        return Server(_durable_server_cfg(
+            srv_kw, grpc_listen_addresses=[f"127.0.0.1:{gport}"],
+            http_address="127.0.0.1:0", durability_dir=ddir),
+            sinks=[CaptureMetricSink()], device=device)
+    a = make()
+    a.start()
+    senders = _senders(f"127.0.0.1:{gport}", twin.engine_stamp, "a")
+    try:
+        out["a_send_s"] = [_forward_interval(senders, intervals[0])]
+        check(a.drain(timeout=300), "A drain() timed out")
+        rows_a = _tenant_rows(a.flush_once(timestamp=100))
+        out["a_send_s"].append(_forward_interval(senders, intervals[1]))
+        # the killed global's workers end with the process on the card;
+        # here they finish their queue first, so that none of their
+        # landings overlaps the restarted global's (the journal is the
+        # same either way: an op is written ahead when it is taken)
+        check(a.drain(timeout=300), "A drain() timed out")
+    finally:
+        for rf in senders:
+            rf.close()
+        _hard_kill_in_process(a)
+    t0 = time.monotonic()
+
+    def restart():
+        srv = make()
+        out["recovery"] = srv._recovery
+        srv.start()
+        out["restart_ready_s"] = time.monotonic() - t0
+        return srv, _tenant_rows(srv.flush_once(timestamp=200))
+    b, rows_b = counted("daemon restart to first flush", restart)
+    out["engine_restore_ns"] = b._recovery["restore_ns"]
+
+    def get(path):
+        return _http_json(b.http_api.port, path)
+
+    def count(label, before):
+        counted(label, lambda: None, external={
+            k: n - before[k] for k, n in kernels.launches.items()})
+
+    def stop():
+        b.stop()
+        return 0
+    return ([rows_a, rows_b],
+            {"b": {"launches": lambda: dict(kernels.launches),
+                   "count": count,
+                   "flush_after_queries": lambda: _tenant_rows(
+                       b.flush_once(timestamp=300)),
+                   "stop": stop, "t1": 200},
+             "get": get})
+
+
+def _durable_sender_kill(device, srv_kw, exports, tmp, counted):
+    """Step 3: a journaled sender forwards local 0's export, then local
+    1's, and is killed between the send and its DONE record (the
+    scripted kill_after_send); a new sender recovers the interval from
+    the journal and replays it under its original envelope, which the
+    global's dedupe ledger drops whole. The global's rows are bit for bit
+    those of a zero-fault oracle sent the two exports once."""
+    from veneur_tpu_torch.cluster.forward import GrpcForwarder
+    from veneur_tpu_torch.durability import ForwardJournal
+    from veneur_tpu_torch.models.pipeline import ForwardExport
+    from veneur_tpu_torch.resilience import (ResilienceRegistry,
+                                             ResilientForwarder)
+    from veneur_tpu_torch.utils.faults import (ScriptedCallable,
+                                               SimulatedKill,
+                                               kill_journal_lock)
+    regs = [ResilienceRegistry(), ResilienceRegistry()]
+    globs = counted("sender kill construction", lambda: [
+        _fleet_global(device, {**srv_kw, "flush_phase_timers": False}, r)
+        for r in regs])
+    out = {}
+    try:
+        for g in globs:
+            g.start()
+        jdir = os.path.join(tmp, "sender")
+        a_ex, b_ex = exports[0], exports[1]
+
+        def grpc(g):
+            return GrpcForwarder(f"127.0.0.1:{g.grpc_port}",
+                                 max_per_batch=DURABLE_GRPC_BATCH,
+                                 engine_stamp=g.engine_stamp)
+
+        def forwards():
+            wire_fwd = grpc(globs[0])
+            rf = ResilientForwarder(
+                ScriptedCallable(["ok", "kill_after_send"],
+                                 on_success=wire_fwd),
+                journal=ForwardJournal(jdir, fsync="never"),
+                sender_id="durable-sender", seq_start=1,
+                destination="kill")
+            rf(a_ex)
+            try:
+                rf(b_ex)
+                check(False, "step 3: the scripted kill did not fire")
+            except SimulatedKill:
+                pass
+            kill_journal_lock(rf._journal)
+            wire_fwd.close()
+            reg = ResilienceRegistry()
+            rf2 = ResilientForwarder(
+                grpc(globs[0]), journal=ForwardJournal(jdir, fsync="never"),
+                sender_id="another", seq_start=1, destination="kill",
+                registry=reg)
+            out["recovered_intervals"] = reg.peek(
+                "kill", "durability.recovered_intervals")
+            check(rf2.sender_id == "durable-sender"
+                  and out["recovered_intervals"] == 1,
+                  f"step 3: recovered {out['recovered_intervals']} "
+                  f"interval(s) as {rf2.sender_id}")
+            rf2(ForwardExport())
+            check(rf2.pending_spill == 0, "step 3: the replay is pending")
+            rf2.close()
+            oracle = ResilientForwarder(grpc(globs[1]), sender_id="oracle",
+                                        seq_start=1, destination="oracle")
+            oracle(a_ex)
+            oracle(b_ex)
+            oracle.close()
+            for g in globs:
+                check(g.drain(timeout=300), "step 3: drain() timed out")
+        counted("sender kill forwards", forwards)
+        rows = counted("sender kill flush", lambda: [
+            _tenant_rows(g.flush_once(timestamp=500)) for g in globs])
+        out["duplicates_dropped"] = regs[0].peek(
+            "import", "forward.duplicates_dropped")
+        n = sum(len(x) for x in (b_ex.histograms, b_ex.sets, b_ex.counters,
+                                 b_ex.gauges))
+        check(out["duplicates_dropped"] == -(-n // DURABLE_GRPC_BATCH),
+              f"step 3: {out['duplicates_dropped']} duplicate chunks "
+              f"dropped, the replay had {-(-n // DURABLE_GRPC_BATCH)}")
+        check(regs[1].peek("import", "forward.duplicates_dropped") == 0,
+              "step 3: the oracle dropped a duplicate")
+        check(rows[0] == rows[1],
+              f"step 3: the killed sender's global ({len(rows[0])} rows) "
+              f"is not bit for bit the oracle's ({len(rows[1])})")
+        out["rows"] = len(rows[0])
+    finally:
+        for g in globs:
+            g.stop()
+    return out
+
+
+def phase_durable(device, cfg_kw=None, srv_kw=None, plan=None,
+                  daemon=None):
+    """A durable global on `device` at the deployment defaults (phase
+    11): the engine checkpoint and restore at full width (step 1), a
+    durable global daemon killed with SIGKILL after acking interval 2 and
+    restarted (step 2; `daemon=False`, the CPU rehearsals' default, runs
+    the global in-process and simulates the kill), a journaled sender
+    killed between send and done (step 3), and /query over step 2's
+    generations (step 4). The launches of each step against
+    DURABLE_LAUNCHES on the card. `cfg_kw`/`srv_kw` (engine and server
+    widths) and `plan` override the deployment defaults and traffic."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from veneur_tpu_torch import kernels
+    plan = plan or GLOBAL_PLAN
+    cfg_kw = cfg_kw or {}
+    srv_kw = srv_kw or {}
+    if daemon is None:
+        daemon = device.type == "cuda"
+    rng = np.random.default_rng(11)
+    launches, out = {}, {}
+
+    def counted(label, fn, external=None):
+        before = dict(kernels.launches)
+        r = fn()
+        step = launches.setdefault(label, dict.fromkeys(kernels.launches, 0))
+        for k, n in (external or kernels.launches).items():
+            step[k] += n - (0 if external else before[k])
+        return r
+
+    kernels.reset_launches()
+    tmp = tempfile.mkdtemp(prefix="durable-")
+    try:
+        exports, truth = counted("locals", lambda: _durable_locals(
+            device, cfg_kw, plan, rng))
+        out["checkpoint"] = _durable_checkpoint(device, cfg_kw, exports,
+                                                tmp, counted, truth)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["kill_restart"] = _durable_twin_and_daemon(
+            device, srv_kw, exports, truth, tmp, counted, daemon)
+        out["sender_kill"] = _durable_sender_kill(device, srv_kw, exports,
+                                                  tmp, counted)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches_by_step"] = launches
+    out["launches"] = {k: sum(step[k] for step in launches.values())
+                       for k in kernels.launches}
+    print(f"durable launches: {json.dumps(launches)}")
+    if device.type == "cuda":
+        check(launches == DURABLE_LAUNCHES,
+              f"durable launches {launches}, predicted {DURABLE_LAUNCHES}")
+    print(f"durable: {json.dumps(out, default=str)}")
+    return out
+
+
+def print_durable_timings(d, card):
+    """Phase 11's times, a line each, with the card."""
+    c = d["checkpoint"]
+    ms = c["ms"]
+    print(f"timing durable checkpoint: {c['bytes']} bytes in "
+          f"{c['records']} records ({c['piles_dirty']} of "
+          f"{c['piles_total']} piles dirty, {c['staged_digests']} staged "
+          f"digests; banks gathered on the device {c['gathered']}): fetch "
+          f"{ms['fetch']:.2f} ms, encode {ms['encode']:.2f} ms, CRC32C "
+          f"{ms['crc32c']:.2f} ms, append with its sync "
+          f"{ms['append_sync']:.2f} ms, load and decode {ms['decode']:.2f}"
+          f" ms, restore (host compose and copies to the card) "
+          f"{ms['restore']:.2f} ms; {c['rows']} rows equal bit for bit "
+          f"| {card}")
+    k = d["kill_restart"]
+    rec = k["recovery"]
+    print(f"timing durable kill-restart: interval sends "
+          f"{', '.join(f'{s:.2f}' for s in k['a_send_s'])} s to the "
+          f"daemon ({', '.join(f'{s:.2f}' for s in k['twin_send_s'])} s "
+          f"to the twin); restart from exec to /ready "
+          f"{k['restart_ready_s']:.2f} s; veneur.durability."
+          f"engine_restore_ns {k['engine_restore_ns']:.0f}; "
+          f"{rec['ops_replayed']} ops and {rec['metrics_replayed']} "
+          f"metrics replayed; flushes of {k['rows']} rows bit for bit the "
+          f"twin's | {card}")
+    for who in ("twin", "daemon"):
+        ticks = k[f"{who}_query_ticks"]
+        for (m, q), t in zip(DURABLE_QUERIES, ticks[-len(DURABLE_QUERIES):]):
+            print(f"timing durable query ({who}) {m} q={q}: wall "
+                  f"{t.get('wall', 0):.2f} ms, restore "
+                  f"{t.get('restore', 0):.2f}, merge {t.get('merge', 0):.2f},"
+                  f" estimate {t.get('estimate', 0):.2f} | {card}")
+    s = d["sender_kill"]
+    print(f"durable sender kill: {s['recovered_intervals']} interval "
+          f"recovered, {s['duplicates_dropped']} duplicate chunks dropped, "
+          f"{s['rows']} rows bit for bit the oracle's | {card}")
+
+
 # ------------------------------------------------------------- main
 
 # (name, source, the TPU kernel it replaces, the phase holding it
@@ -3532,6 +4477,7 @@ def main() -> int:
     ssf_out = ph.run("ssf+overload", phase_ssf_overload, device)
     glob_out = ph.run("global tier", phase_global, device)
     fleet_out = ph.run("fleet", phase_fleet, device)
+    durable_out = ph.run("durable", phase_durable, device)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}",
               file=sys.stderr)
@@ -3637,7 +4583,9 @@ def main() -> int:
               f" | {card}")
     print_global_timings(glob_out, card)
     print_fleet_timings(fleet_out, card)
-    paths = [*main_out.values(), server, ssf_out, glob_out, fleet_out]
+    print_durable_timings(durable_out, card)
+    paths = [*main_out.values(), server, ssf_out, glob_out, fleet_out,
+             durable_out]
     kernels = []
     for name, source, replaces, phase, timed in KERNELS:
         t = timing[timed]

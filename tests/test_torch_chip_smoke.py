@@ -306,3 +306,98 @@ def test_fleet_launch_table_follows_the_plan():
                                 "ull_insert": 0, "probe": 0}
     assert table["construction"]["probe"] == 2 + n
     assert table["rerun construction"]["probe"] == 2
+
+
+# phase 11 at small shapes: the timers and the import stage are scaled
+# together (155 + 1 digests a local against a stage of 64, as 20001
+# against 8192 at the defaults, and 156 of 256 histogram slots dirty as
+# 20001 of 32768), so every landing falls where the full plan's does
+DURABLE_PLAN = {"locals": 4, "timers": (155, 25), "counters": (50, 4),
+                "gauges": 50, "sets": (10, 200, 100), "local_timers": (5, 25),
+                "hot_senders": 0, "hot_samples": 2000}
+
+
+def test_phase_durable_rehearsal(monkeypatch, one_torch_thread):
+    """Phase 11 at small widths, with the in-process kill in place of the
+    daemon's SIGKILL (tpu_hll_precision stays 14: at p=12 a set of a few
+    hundred members misses set_ok). The checkpoint restores bit for bit,
+    the killed global restarts bit for bit its twin, the killed sender's
+    replay is dropped whole, and /query answers within the contract of
+    numpy truth, equal on both servers, with neither's live state
+    moved."""
+    from veneur_tpu_torch.models import pipeline
+    monkeypatch.setattr(pipeline, "_IMPORT_STAGE_DIGESTS", 64)
+    cfg_kw = {"histogram_slots": 256, "counter_slots": 128,
+              "gauge_slots": 128, "set_slots": 32}
+    srv_kw = {"tpu_histogram_slots": 256, "tpu_counter_slots": 128,
+              "tpu_gauge_slots": 128, "tpu_set_slots": 32,
+              "tpu_hll_precision": 14}
+    out = cs.phase_durable(CPU, cfg_kw=cfg_kw, srv_kw=srv_kw,
+                           plan=DURABLE_PLAN)
+    ck = out["checkpoint"]
+    n = 156 + 50 + 50 + 10                  # a local's exported metrics
+    assert ck["import"]["metrics"] == 4 * n
+    assert ck["staged_digests"] == 4 * 156 % 64
+    # mid-interval: the landed digests' rows; counters, gauges and the
+    # 40 set rows (under a set landing of 256) are still staged
+    assert ck["piles_dirty"] == 156
+    kr = out["kill_restart"]
+    assert kr["recovery"]["engines_restored"] == 1
+    assert kr["recovery"]["metrics_replayed"] == 2 * n
+    assert kr["rows"][0] == kr["rows"][1] > 0
+    assert len(kr["twin_query_ticks"]) == len(cs.DURABLE_QUERIES)
+    assert {"restore", "merge", "estimate"} <= set(kr["twin_query_ticks"][0])
+    assert kr["answers"][1]["count"] == 4 * DURABLE_PLAN["hot_samples"]
+    assert kr["worst"]["pct_err_over_spread"] <= 0.01 + 1e-6
+    sk = out["sender_kill"]
+    assert sk["recovered_intervals"] == 1
+    assert sk["duplicates_dropped"] == -(-n // 200)
+    cs.print_durable_timings(out, "cpu")
+    assert all(n == 0 for n in out["launches"].values())
+    assert set(out["launches_by_step"]) == set(cs.DURABLE_LAUNCHES)
+
+
+def test_durable_launch_table_follows_the_plan():
+    """Every step of phase 11's table names every kernel, and its counts
+    follow from GLOBAL_PLAN and the import stage of 8192 digests as
+    PERF.md derives them: a probe an engine; three compresses and two
+    hll_stats a local; two compresses a landing; a global's first flush
+    the remainder's landing, the baseline and the work set (compress 4,
+    hll_stats 2), a later one without the baseline; the queries' scratch
+    and merge engines."""
+    from veneur_tpu_torch.models import pipeline
+    names = {k[0] for k in cs.KERNELS}
+    table = cs.DURABLE_LAUNCHES
+    assert all(set(step) == names for step in table.values())
+    p = cs.GLOBAL_PLAN
+    stage = pipeline._IMPORT_STAGE_DIGESTS
+    d = p["timers"][0] + 1                      # a local's digests
+    assert table["locals"] == {"compress": 3 * p["locals"],
+                               "hll_stats": 2 * p["locals"],
+                               "ull_insert": 0, "probe": p["locals"]}
+    assert table["checkpoint import"]["compress"] == 2 * (4 * d // stage)
+    assert 4 * d % stage and 2 * d % stage
+    first = {"compress": 4, "hll_stats": 2, "ull_insert": 0, "probe": 0}
+    assert table["checkpoint flush"] == {k: 2 * v for k, v in first.items()}
+    for r in (1, 2):
+        assert table[f"twin interval {r}"]["compress"] == \
+            2 * (2 * d // stage)
+    assert table["twin flush 1"] == first
+    assert table["twin flush 2"] == {**first, "compress": 3,
+                                     "hll_stats": 1}
+    assert table["daemon restart to first flush"] == {
+        **first, "compress": 2 * (2 * d // stage) + 4, "probe": 1}
+    rem = d % stage
+    kill = 2 * (d // stage) + 2 * ((rem + d) // stage)
+    assert table["sender kill forwards"]["compress"] == 2 * kill
+    assert table["sender kill flush"] == {k: 2 * v for k, v in first.items()}
+    merge = [4, 4, 1, 2]                  # g.t7, g.hot, counter, set
+    land = 2 * (2 * d // stage)
+    assert table["twin queries"] == {
+        "compress": 2 * (land + 4) + sum(merge),
+        "hll_stats": 2 * 2 + 2 + 2 + 1 + 2, "ull_insert": 0, "probe": 6}
+    assert table["daemon queries"] == {
+        "compress": land + 4 + 4 + sum(merge),
+        "hll_stats": 2 * 2 + 2 + 2 + 1 + 2, "ull_insert": 0, "probe": 6}
+    assert sum(s["probe"] for s in table.values()) == \
+        p["locals"] + 2 + 1 + 1 + 2 + 6 + 6

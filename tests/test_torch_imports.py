@@ -11,8 +11,11 @@ their calls), so importing them all pulls in no yaml, protobuf or grpc,
 and a DogStatsD-only server — its HTTP listener with the dedupe ledger
 included — that starts, takes a datagram and flushes imports neither
 protobuf nor grpc. The HTTP API no longer carries the "not ported"
-answer to POST /import. chip_smoke.py refuses to run without a card or
-without the package beside it, and then prints no result.
+answer to POST /import. The durability package (journals, records,
+the history and query tier) and the durable server's modules import
+neither jax nor veneur_tpu, and protobuf only inside the record codecs'
+functions. chip_smoke.py refuses to run without a card or without the
+package beside it, and then prints no result.
 """
 
 import os
@@ -113,6 +116,50 @@ NETWORK_PATH = ("veneur_tpu_torch.resilience",
                 "veneur_tpu_torch.cli.proxy")
 
 
+# durability and /query: each must be among the modules imported above
+DURABILITY_PATH = ("veneur_tpu_torch.durability",
+                   "veneur_tpu_torch.durability.journal",
+                   "veneur_tpu_torch.durability.records",
+                   "veneur_tpu_torch.durability.state",
+                   "veneur_tpu_torch.durability.history")
+
+# the durability package alone, in a fresh interpreter: a journal, a
+# checkpoint record of a CPU engine and a history generation, with
+# protobuf absent until a record codec that needs it runs
+_DURABILITY_ONLY = r"""
+import sys, tempfile
+import numpy as np
+from veneur_tpu_torch import durability
+from veneur_tpu_torch.durability import records
+from veneur_tpu_torch.durability.history import HistoryStore, parse_qspec
+from veneur_tpu_torch.models.pipeline import AggregationEngine, EngineConfig
+d = tempfile.mkdtemp()
+j = durability.EngineJournal(d, fsync="never")
+j.load_records()
+eng = AggregationEngine(EngineConfig(histogram_slots=8, counter_slots=8,
+                                     gauge_slots=8, set_slots=8,
+                                     hll_precision=6), device="cpu")
+eng.enable_dirty_tracking()
+recs = records.encode_engine_checkpoint(0, 1, eng.checkpoint_state())
+j.append_checkpoint(recs)
+j.close()
+st = HistoryStore(d, retention_generations=2, fsync=False)
+st.append(10**9, 0, [0], recs, [])
+assert parse_qspec("0.5,count")[0] == (0.5,)
+before = sorted(m for m in sys.modules if m.startswith(
+    ("google.protobuf", "grpc")))
+from veneur_tpu_torch.durability.records import encode_engine_import
+encode_engine_import(1, [])
+after = sorted(m for m in sys.modules if m.startswith("google.protobuf"))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "veneur_tpu" or m.startswith("veneur_tpu."))
+print(",".join(before))
+print(",".join(bad))
+print(len(after))
+"""
+
+
 def _clean_env():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -130,6 +177,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert set(SERVER_PATH) <= set(names)
     assert set(GLOBAL_PATH) <= set(names)
     assert set(NETWORK_PATH) <= set(names)
+    assert set(DURABILITY_PATH) <= set(names)
     assert bad == "", f"JAX-side modules imported: {bad}"
     assert absent == "", f"yaml/protobuf/grpc imported: {absent}"
 
@@ -140,6 +188,17 @@ def test_statsd_only_server_imports_no_protobuf():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().split("\n")[-1] == ""
+
+
+def test_durability_imports_no_jax_and_protobuf_only_in_functions():
+    out = subprocess.run([sys.executable, "-c", _DURABILITY_ONLY],
+                         cwd=ROOT, env=_clean_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    before, bad, after = out.stdout.split("\n")[-4:-1]
+    assert before == "", f"protobuf/grpc imported at module level: {before}"
+    assert bad == "", f"JAX-side modules imported: {bad}"
+    assert int(after) > 0          # the import-op codec loads it itself
 
 
 def test_http_api_no_longer_answers_not_ported():

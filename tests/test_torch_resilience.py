@@ -886,9 +886,29 @@ def test_replay_ladder_matches_the_reference(seed):
     assert kinds == {"full", "delta"}       # both kinds went on the wire
 
 
-def test_journal_arm_is_refused_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ResilientForwarder(ScriptedCallable(["ok"]), journal=object())
+def test_journal_arm_is_refused_naming_item_11(tmp_path):
+    """Item 11 is ported: the journal arm is served, no longer refused.
+    A forwarder over a ForwardJournal parks a failed interval in the
+    journal, and a new forwarder on the same directory recovers it under
+    its original envelope."""
+    from veneur_tpu_torch.durability import ForwardJournal
+    from veneur_tpu_torch.utils.faults import kill_journal_lock
+    exp = ForwardExport()
+    exp.counters.append((MetricKey("c", "counter", ""), 2.0))
+    j1 = ForwardJournal(str(tmp_path))
+    rf = ResilientForwarder(ScriptedCallable(["refused"]), journal=j1,
+                            sender_id="s-11", seq_start=5)
+    with pytest.raises(Exception):
+        rf(exp)
+    kill_journal_lock(j1)
+    sent = []
+    rf2 = ResilientForwarder(
+        lambda export, envelope=None: sent.append(envelope),
+        journal=ForwardJournal(str(tmp_path)), sender_id="other")
+    assert rf2.sender_id == "s-11" and rf2.pending_spill == 1
+    rf2(ForwardExport())
+    assert [(e.sender_id, e.interval_seq) for e in sent] == [("s-11", 5)]
+    rf2.close()
 
 
 def test_forwarding_server_counters_reach_self_metrics():

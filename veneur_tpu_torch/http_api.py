@@ -11,8 +11,9 @@ emits them). GET /debug/threads dumps every thread's stack, GET
 fleet view, GET /healthz and /ready structured verdicts. GET
 /debug/flush/profile?ticks=N schedules an on-demand torch.profiler
 capture of the next N flush ticks when the server was configured with
-debug_flush_profile. /query answers as the reference does on a server
-without the time-travel tier (ROADMAP item 11).
+debug_flush_profile. GET /query?metric=&q=&t0=&t1= answers from the
+time-travel tier of a durable global (durability/history.py), and 404s,
+in the reference's words, on a server without it.
 
 The module imports no protobuf: `json_metric_to_pb` and the import
 handler load the wire inside the call.
@@ -100,12 +101,19 @@ class HttpApi:
     match is 400'd before any decode, its verdict recorded through
     `note_stamp(sender, stamp, ok)`. `observer` (observe.ImportObserver)
     phase-attributes each request; `merge_sketches(items)` takes the
-    advisory per-prefix cardinality rows (X-Veneur-Prefix-Sketches)."""
+    advisory per-prefix cardinality rows (X-Veneur-Prefix-Sketches).
+    `submit_batch([(digest, pb), ...], envelope)` (optional) takes a whole
+    admitted request in place of `submit`: the durable global journals it
+    as one op before any worker sees it.
+
+    GET /query: `query(params)` (optional) runs one time-travel query and
+    returns its JSON body, or raises an error carrying `status` and
+    `detail`; absent, /query answers 404."""
 
     def __init__(self, address: str, debug_state=None, fleet_state=None,
                  health=None, profile=None, *, submit=None, ledger=None,
                  observer=None, engine_stamp=None, note_stamp=None,
-                 merge_sketches=None):
+                 merge_sketches=None, submit_batch=None, query=None):
         host, _, port = address.rpartition(":")
         host = host.strip("[]") or "0.0.0.0"
         self._debug_state = debug_state
@@ -118,6 +126,8 @@ class HttpApi:
         self._engine_stamp = engine_stamp
         self._note_stamp = note_stamp
         self._merge_sketches = merge_sketches
+        self._submit_batch = submit_batch
+        self._query = query
         api = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -174,12 +184,34 @@ class HttpApi:
                         self.path.startswith(path):
                     self._json(api._debug_state, b"flush")
                 elif path == "/query":
+                    self._serve_query()
+                else:
+                    self._reply(404, b"not found\n")
+
+            def _serve_query(self):
+                """GET /query: time-travel reads from the durability
+                journal's retained generations."""
+                if api._query is None:
                     self._reply(404, b"no time-travel query tier on "
                                      b"this server (set "
                                      b"history_retention_generations "
                                      b"with durability enabled)\n")
-                else:
-                    self._reply(404, b"not found\n")
+                    return
+                # keep_blank_values: `tags=` (empty) means "untagged
+                # keys only", distinct from no tags filter at all
+                qs = parse_qs(urlparse(self.path).query,
+                              keep_blank_values=True)
+                params = {k: v[0] for k, v in qs.items() if v}
+                try:
+                    body = api._query(params)
+                except Exception as e:
+                    status = getattr(e, "status", 500)
+                    detail = getattr(e, "detail", f"query failed: {e}")
+                    self._reply(status, json.dumps(
+                        {"error": detail}).encode(), "application/json")
+                    return
+                self._reply(200, json.dumps(body, default=str).encode(),
+                            "application/json")
 
             def _profile_capture(self):
                 if api._profile is None:
@@ -307,8 +339,11 @@ class HttpApi:
                         "application/json")
                     return
                 ph = -1 if scope is None else scope.start("apply")
-                for digest, pb in decoded:
-                    api._submit(digest, pb)
+                if api._submit_batch is not None:
+                    api._submit_batch(decoded, env)
+                else:
+                    for digest, pb in decoded:
+                        api._submit(digest, pb)
                 if scope is not None:
                     scope.finish(ph, n_metrics=len(decoded))
                     scope.n_metrics = len(decoded)

@@ -57,8 +57,11 @@ Two tiers, as in the JAX package (flusher.go semantics):
     `cluster_rows` (eager torch), then merged and compressed (the
     compress kernel on the card) — at a staging bound, and for the
     retiring interval outside the lock in the flush.
-Checkpoints and the relayed-backend fetch modes are refused by
-EngineConfig (ROADMAP queue A names where each will be ported). The
+A durable global checkpoints its engines at each flush boundary
+(`checkpoint_state`: the live banks' dirty rows, gathered on the device)
+and a restarted one rebuilds them (`restore_checkpoint`); the records'
+bytes are the JAX package's (durability/records.py). The relayed-backend
+fetch modes are refused by EngineConfig (ROADMAP queue A, item 16). The
 server's admission controller attaches through `attach_admission`.
 """
 
@@ -482,8 +485,13 @@ class AggregationEngine:
         # marked at every landing and retired at the flush swap: at any
         # instant `fresh init + dirty rows` is exactly the live bank
         # state, which is what lets the incremental flush skip cold rows.
+        # The checkpoint (enable_dirty_tracking, checkpoint_state) is the
+        # bitmaps' second consumer: armed by the incremental flush here or
+        # by the durable server; `_delta_threshold` is the dirty fraction
+        # past which a checkpoint fetches whole leaves instead of a gather.
         self._use_incremental = cfg.flush_incremental
         self._dirty = None
+        self._delta_threshold = 0.5
         if self._use_incremental:
             self._dirty = [np.zeros(n, bool) for n in self._bank_sizes()]
         # per-output-key rows of an EMPTY flush, built lazily on 1-slot
@@ -1567,6 +1575,164 @@ class AggregationEngine:
                     [infos[i][0].name for i in keep],
                     [self._scalar_tags_of(infos[i]) for i in keep],
                     vals[slots[keep]], (mtype,))
+
+    # ---------------- engine checkpoint/restore (durability) ----------
+    # The byte encoding lives in durability/records.py: these methods
+    # move numpy arrays of the JAX package's leaf dtypes (f32, i32, u8),
+    # never raw bytes, so a checkpoint crosses between the two packages.
+
+    def _bank_table(self):
+        """(kind, bank attr name, interner) rows in the fixed record
+        order durability/records.py's BANK_* constants name."""
+        return ((0, "histo_bank", self.histo_keys),
+                (1, "counter_bank", self.counter_keys),
+                (2, "gauge_bank", self.gauge_keys),
+                (3, "set_bank", self.set_keys))
+
+    def bank_leaf_names(self, kind: int) -> tuple:
+        """The durability leaf order for one bank kind: the selected
+        engines' for the histogram and set banks, the fixed one for the
+        counter and gauge banks."""
+        if kind == 0:
+            return self._heng.bank_leaves
+        if kind == 3:
+            return self._seng.bank_leaves
+        from ..durability import records as drecords
+        return drecords.BANK_LEAVES[kind]
+
+    def enable_dirty_tracking(self, delta_threshold: float = 0.5):
+        """Arm the per-bank dirty bitmaps for the checkpoint consumer
+        (the server calls this when engine checkpointing is on). The
+        incremental flush arms the same bitmaps at construction; marks
+        already made are kept. `delta_threshold` is the dirty fraction
+        past which checkpoint_state fetches whole leaves and slices them
+        on the host instead of gathering rows on the device."""
+        with self.lock:
+            self._delta_threshold = float(delta_threshold)
+            if self._dirty is None:
+                self._dirty = [np.zeros(n, bool)
+                               for n in self._bank_sizes()]
+
+    def checkpoint_state(self) -> dict:
+        """One engine's checkpoint, taken under the ingest lock so it is
+        a consistent cut: the live banks' dirty rows (banks are
+        interval-scoped, so fresh init + these rows is the state), the
+        full interner tables, the staged-but-unlanded import
+        accumulators, the gauge sequence and the applied-op watermark,
+        as numpy arrays. The rows come off the device in one
+        `index_select` a leaf, or, past `_delta_threshold`, as whole
+        leaves sliced on the host. The set landing buffer lands first,
+        so its updates (already marked dirty) are in the rows."""
+        from ..durability import records as drecords
+        with self.lock:
+            self.set_bank = self._land_set_buffer(self.set_bank,
+                                                  self._set_landing)
+            banks: dict = {}
+            piles_total = piles_dirty = 0
+            for kind, attr, _ki in self._bank_table():
+                bank = getattr(self, attr)
+                d = self._dirty[kind]
+                ids = np.nonzero(d)[0].astype(np.int32)
+                piles_total += d.size
+                piles_dirty += ids.size
+                leaves: dict = {}
+                if ids.size:
+                    gather = ids.size < self._delta_threshold * d.size
+                    idx = (torch.as_tensor(ids, dtype=torch.long,
+                                           device=self.device)
+                           if gather else None)
+                    for name in self.bank_leaf_names(kind):
+                        leaf = getattr(bank, name)
+                        if gather:
+                            leaves[name] = leaf.index_select(0, idx) \
+                                .cpu().numpy()
+                        else:
+                            leaves[name] = leaf.cpu().numpy()[ids]
+                banks[kind] = (ids, leaves)
+            interner = {
+                kind: (ki.interval, ki.snapshot_entries())
+                for kind, _attr, ki in self._bank_table()}
+            staged = {
+                "centroids": list(self._import_centroids),
+                "sets": list(self._import_sets),
+                "counters": list(self._import_counter_acc.items()),
+                "gauges": list(self._import_gauge_acc.items()),
+            }
+            return {
+                "fingerprint": drecords.engine_fingerprint(
+                    self.cfg, self.histo_bank.num_centroids),
+                "gauge_seq": self._gauge_seq,
+                "last_import_op": self.last_import_op,
+                "interner": interner,
+                "banks": banks,
+                "staged": staged,
+                "leaf_names": {
+                    kind: self.bank_leaf_names(kind)
+                    for kind, _attr, _ki in self._bank_table()},
+                "piles_total": piles_total,
+                "piles_dirty": piles_dirty,
+            }
+
+    def restore_checkpoint(self, fingerprint, gauge_seq: int,
+                           watermark: int, interner: dict, banks: dict,
+                           staged: dict):
+        """Rebuild this freshly constructed engine from a decoded
+        checkpoint group: each leaf is composed on the host from the
+        fresh-init baseline with the journaled rows laid over it, then
+        copied to the engine's device once. The restored rows are marked
+        dirty again (the next checkpoint must carry them). Raises
+        ValueError on a fingerprint mismatch: rows are never scattered
+        into an engine of another shape or another sketch pair."""
+        from ..durability import records as drecords
+        want = drecords.engine_fingerprint(self.cfg,
+                                           self.histo_bank.num_centroids)
+        if tuple(fingerprint) != want:
+            raise ValueError(
+                f"engine checkpoint fingerprint {tuple(fingerprint)} "
+                f"does not match this engine's shape {want}")
+        no_rows = (np.zeros(0, np.int32), {})
+        with self.lock:
+            for kind, attr, _ki in self._bank_table():
+                ids, leaves = banks.get(kind, no_rows)
+                if len(ids) == 0:
+                    continue             # fresh rows, already right
+                bank = getattr(self, attr)
+                host = {}
+                for name in self.bank_leaf_names(kind):
+                    full = getattr(bank, name).cpu().numpy().copy()
+                    full[ids] = leaves[name]
+                    host[name] = torch.from_numpy(full).to(self.device)
+                setattr(self, attr, type(bank)(**host))
+            for kind, _attr, ki in self._bank_table():
+                interval, entries = interner.get(kind, (0, []))
+                ki.restore(interval, entries)
+                ids, _leaves = banks.get(kind, no_rows)
+                if self._dirty is not None and len(ids):
+                    self._dirty[kind][ids] = True
+            self._import_centroids = [
+                (int(s), np.asarray(m, np.float32),
+                 np.asarray(w, np.float32), float(a), float(b),
+                 float(c), float(d), float(e))
+                for s, m, w, a, b, c, d, e in staged.get("centroids", [])]
+            self._import_centroid_total = sum(
+                len(m) for _s, m, *_rest in self._import_centroids)
+            self._import_sets = [(int(s), np.asarray(r, np.uint8))
+                                 for s, r in staged.get("sets", [])]
+            self._import_counter_acc = {
+                int(s): float(v) for s, v in staged.get("counters", [])}
+            self._import_gauge_acc = {
+                int(s): float(v) for s, v in staged.get("gauges", [])}
+            self._gauge_seq = int(gauge_seq)
+            self.last_import_op = int(watermark)
+
+    def dirty_stats(self) -> tuple:
+        """(dirty piles, total piles) across the four banks: the
+        veneur.durability.engine_snapshot_piles_* gauges."""
+        if self._dirty is None:
+            return (0, 0)
+        with self.lock:
+            return (sum(int(d.sum()) for d in self._dirty),
+                    sum(d.size for d in self._dirty))
 
     # ---- presentation caches (names/tags reused across flushes), kept
     # on the interner's per-key SlotInfo holder

@@ -803,13 +803,15 @@ class ResilientForwarder:
         (seconds-granularity seeding would lose that race below 1s
         intervals).
 
-        `journal` (the reference's durability.ForwardJournal, which makes
-        the ladder crash-safe) belongs to ROADMAP item 11 and is refused
-        here; with journal=None the ladder is the reference's exactly."""
-        if journal is not None:
-            from .models.pipeline import _not_ported
-            raise _not_ported("ResilientForwarder(journal=...)",
-                              "item 11, durability and /query")
+        `journal` (a durability.ForwardJournal, optional) makes the
+        ladder crash-safe: every mutation appends one op record, the
+        current interval is written ahead of any wire traffic, and
+        construction REPLAYS the journal — parked intervals come back
+        with their ORIGINAL envelopes (sender_id and seqs restored from
+        the journal, overriding the arguments), so the receiver's
+        dedupe ledger still drops anything it Combined before the
+        crash. With journal=None behavior is bit-identical to the
+        pre-durability forwarder."""
         self.inner = inner
         self.destination = destination
         self.registry = registry or DEFAULT_REGISTRY
@@ -852,6 +854,154 @@ class ResilientForwarder:
             max_sketches=max_spill_sketches,
             gauge_max_age_intervals=gauge_max_age_intervals,
             destination=destination, registry=self.registry)
+        self._journal = journal
+        if journal is not None:
+            self._recover(journal)
+            # pin the (possibly recovered) identity so even a compacted
+            # or fresh journal is self-describing
+            self._jop("meta", self.sender_id, self._next_seq)
+
+    def _jop(self, method: str, *args):
+        """Run one journal op. A failing journal (disk full, I/O
+        error) must never cost an interval the pre-durability code
+        would have delivered or parked losslessly — so the op degrades:
+        journaling is disabled for this process (counted, logged
+        loudly) and the forward proceeds unjournaled. The on-disk
+        journal keeps its last consistent state; a restart recovers
+        from it (recovered intervals replay under their envelopes, so
+        any that DID deliver after the degradation dedupe at the
+        receiver)."""
+        jrn = self._journal
+        if jrn is None:
+            return
+        sc = _current_scope()
+        tick = sc.tick if sc is not None else None
+        ph = -1 if tick is None else tick.start("journal." + method,
+                                                sc.parent)
+        try:
+            getattr(jrn, method)(*args)
+            if tick is not None:
+                tick.finish(ph)
+        except Exception:
+            if tick is not None:
+                tick.finish(ph, outcome="error")
+            self._journal = None
+            self.registry.incr(self.destination,
+                               "durability.journal_errors")
+            log.exception(
+                "durability journal %s failed for %s; DISABLING "
+                "journaling for this process (forwarding continues "
+                "unjournaled — the pre-durability lossless contract); "
+                "state parked before this point recovers on restart",
+                method, self.destination)
+            try:
+                jrn.close()
+            except Exception:
+                pass
+
+    # ------------------------------------------------ durable recovery
+
+    def _recover(self, journal):
+        """Rebuild the ladder + spill tier by replaying the journal's
+        op records in write order. The ops are deterministic given the
+        export payloads stored in BEGIN/UPDATE records, so the
+        recovered state matches the crashed incarnation's at its last
+        append — counters are NOT re-incremented for sketches the
+        previous incarnation already counted (a scratch registry
+        absorbs them); only the durability.recovered_* counters fire."""
+        from .durability import records as drec
+
+        ops = journal.load_ops()
+        scratch = ResilienceRegistry()
+        real_reg, self.registry = self.registry, scratch
+        real_spill_reg, self.spill.registry = self.spill.registry, scratch
+        try:
+            for rec_type, payload in ops:
+                try:
+                    self._apply_op(drec, rec_type, payload)
+                except Exception as e:   # pragma: no cover - corrupt op
+                    # a record that frames+CRCs clean but fails to parse
+                    # (version skew) must not kill startup; everything
+                    # before it is kept, it and later state-dependent
+                    # drift is surfaced loudly
+                    log.warning("durability: unreadable journal record "
+                                "type=%d dropped during recovery: %s",
+                                rec_type, e)
+        finally:
+            self.registry = real_reg
+            self.spill.registry = real_spill_reg
+        if self._entries or len(self.spill):
+            self.registry.incr(self.destination,
+                               "durability.recovered_intervals",
+                               len(self._entries))
+            self.registry.incr(self.destination,
+                               "durability.recovered_sketches",
+                               self.pending_spill)
+            log.info(
+                "durability: recovered %d parked interval(s) / %d "
+                "sketch(es) for %s; replaying under their original "
+                "envelopes (sender_id=%s)", len(self._entries),
+                self.pending_spill, self.destination, self.sender_id)
+
+    def _apply_op(self, drec, rec_type: int, payload: bytes):
+        if rec_type == drec.REC_META:
+            sender_id, next_seq = drec.decode_meta(payload)
+            self.sender_id = sender_id
+            self._next_seq = max(self._next_seq, next_seq)
+        elif rec_type == drec.REC_BEGIN:
+            seq, off, cnt, age, export, kind = \
+                drec.decode_begin(payload)
+            entry = _ReplayEntry(seq, export, off, cnt, kind=kind)
+            entry.age = age
+            self._entries.append(entry)
+            self._next_seq = max(self._next_seq, seq + 1)
+        elif rec_type == drec.REC_DONE:
+            seq = drec.decode_done(payload)
+            self._entries = [e for e in self._entries if e.seq != seq]
+        elif rec_type == drec.REC_UPDATE:
+            seq, off, cnt, export = drec.decode_update(payload)
+            for entry in self._entries:
+                if entry.seq == seq:
+                    entry.export = export
+                    entry.chunk_offset = off
+                    if cnt:
+                        entry.chunk_count = cnt
+        elif rec_type == drec.REC_AGE:
+            self._age_entries()
+        elif rec_type == drec.REC_DEMOTE:
+            if self._entries:
+                self.spill.spill(self._entries.pop(0).export)
+        elif rec_type == drec.REC_SPILL_MERGE:
+            # the drained contents ride the current interval, whose
+            # BEGIN/UPDATE record follows — here only clear + remember
+            # gauge ages, exactly what merge_into did live
+            from .models.pipeline import ForwardExport
+            self.spill.merge_into(ForwardExport())
+        elif rec_type == drec.REC_SPILL_STATE:
+            drec.decode_spill_state(payload, self.spill)
+
+    def durable_snapshot_records(self) -> list:
+        """Full-state record list for snapshot compaction: replaying
+        just these reconstructs the ladder + spill tier."""
+        from .durability import records as drec
+        out = [(drec.REC_META,
+                drec.encode_meta(self.sender_id, self._next_seq)),
+               (drec.REC_SPILL_STATE, drec.encode_spill_state(self.spill))]
+        out.extend(
+            (drec.REC_BEGIN,
+             drec.encode_begin(e.seq, e.chunk_offset, e.chunk_count,
+                               e.age, e.export, e.kind))
+            for e in self._entries)
+        return out
+
+    def journal_tick(self):
+        """Flush-boundary hook (the server calls it once per tick):
+        fsync per policy and compact when the journal outgrew its
+        budget. Failures degrade like any other journal op."""
+        if self._journal is None:
+            return
+        self._jop("sync")
+        self._jop("maybe_compact", self.durable_snapshot_records)
 
     @property
     def pending_spill(self) -> int:
@@ -900,8 +1050,7 @@ class ResilientForwarder:
 
     def _demote_front_to_spill(self, counter: str):
         """Move the OLDEST ladder entry into the merged overflow tier
-(the one
-        demotion shape of the ladder).
+        (the one demotion shape the REC_DEMOTE journal op replays).
         Punches a permanent hole in the seq chain — that seq will
         never be delivered under its own envelope — so the next
         interval is forced to a full resync: a receiver must never be
@@ -909,6 +1058,7 @@ class ResilientForwarder:
         entry = self._entries.pop(0)
         self.registry.incr(self.destination, counter,
                            _export_size(entry.export))
+        self._jop("demote")
         # SpillBuffer.spill counts these under "spilled" again;
         # compensate so spilled_total keeps meaning "sketches that
         # entered the resilience layer", not internal shuffles
@@ -977,9 +1127,18 @@ class ResilientForwarder:
         trace_id = _tick0.trace_id if _tick0 is not None else 0
         span_id = _tick0.span_id if _tick0 is not None else 0
         cur_close = _tick0.close_ns if _tick0 is not None else 0
-        # the current interval's seq is allocated when it first parks or
-        # goes on the wire
+        # -- durability write-ahead: the current interval enters the
+        # journal (seq allocated now) BEFORE any wire traffic, so a
+        # hard kill anywhere in this tick — mid-replay-ladder included
+        # — cannot lose it; a clean delivery appends DONE below. With
+        # no journal the seq is allocated at the same points as before.
+        # Journal ops go through _jop: a failing disk degrades to
+        # unjournaled forwarding instead of costing the interval.
         cur_seq = None
+        if self._journal is not None and _export_size(export):
+            cur_seq = self._next_seq
+            self._next_seq += 1
+            self._jop("begin", cur_seq, 0, 0, 0, export, cur_kind)
         # -- replay phase: pending intervals first, oldest seq first,
         # under their ORIGINAL envelopes; stop at the first failure so
         # the receiver observes seqs strictly in order.
@@ -1036,6 +1195,8 @@ class ResilientForwarder:
                     entry.chunk_count = e.chunk_count
                 if tick is not None:
                     tick.finish(rp, outcome="partial")
+                self._jop("update", entry.seq, entry.chunk_offset,
+                          entry.chunk_count, entry.export)
                 replay_err = e
             except Exception as e:
                 if tick is not None:
@@ -1046,6 +1207,7 @@ class ResilientForwarder:
                     tick.finish(rp, outcome="ok")
                 reg.incr(dest, "replayed", _export_size(entry.export))
                 self._entries.pop(0)
+                self._jop("done", entry.seq)
         if replay_err is not None:
             # park the current interval unsent: delivering it ahead of
             # the failed replay would reorder seqs at the receiver.
@@ -1059,6 +1221,7 @@ class ResilientForwarder:
                            kind=cur_kind)
                 self._note_interval_kind(cur_kind)
             self._age_entries()
+            self._jop("age")
             log.warning(
                 "forward to %s failed on replay; current interval "
                 "parked for in-order retry (%d sketches pending)",
@@ -1067,12 +1230,22 @@ class ResilientForwarder:
         # -- overflow tier: sketches that outlived the replay ledger
         # ride the CURRENT interval's envelope (their at-least-once
         # degradation was already counted as reenveloped)
+        had_spill = len(self.spill) > 0
         export = self.spill.merge_into(export)
+        if had_spill:
+            self._jop("spill_merge")
         if _export_size(export) == 0:
             return
         if cur_seq is None:
             cur_seq = self._next_seq
             self._next_seq += 1
+            # the interval only materialized from the spill tier (or
+            # journaling is off); write it ahead now
+            if self._journal is not None:
+                self._jop("begin", cur_seq, 0, 0, 0, export, cur_kind)
+        elif had_spill:
+            # the spill merge changed the written-ahead payload
+            self._jop("update", cur_seq, 0, 0, export)
         seq = cur_seq
         sc = _current_scope()
         tick = sc.tick if sc is not None else None
@@ -1110,15 +1283,20 @@ class ResilientForwarder:
             return
         except PartialDeliveryError as e:
             # some chunks landed: park only what didn't, resuming at
-            # the failed chunk's id
+            # the failed chunk's id. The UPDATE record goes first so
+            # recovery shrinks the written-ahead payload to the
+            # undelivered tail BEFORE any demote the park may trigger.
             if tick is not None:
                 tick.finish(sp, outcome="partial")
+            self._jop("update", seq, e.delivered_chunks, e.chunk_count,
+                      e.undelivered)
             n = self._park(seq, e.undelivered,
                            chunk_offset=e.delivered_chunks,
                            chunk_count=e.chunk_count,
                            close_ns=cur_close, kind=cur_kind)
             self._note_interval_kind(cur_kind)
             self._age_entries()
+            self._jop("age")
             log.warning(
                 "forward to %s partially failed; %d undelivered "
                 "sketches parked for replay under their original "
@@ -1131,6 +1309,7 @@ class ResilientForwarder:
                            kind=cur_kind)
             self._note_interval_kind(cur_kind)
             self._age_entries()
+            self._jop("age")
             log.warning(
                 "forward to %s failed; %d sketches parked for replay "
                 "under their original envelope", dest, n)
@@ -1139,15 +1318,17 @@ class ResilientForwarder:
             if tick is not None:
                 tick.finish(sp, outcome="ok")
             self._note_interval_kind(cur_kind)
+            self._jop("done", seq)
 
     def debug_state(self) -> dict:
-        """JSON-ready ladder/spill/breaker state for the
+        """JSON-ready ladder/spill/journal/breaker state for the
         /debug/flush introspection endpoint. Reads only (flusher-thread
         sizes may be one tick stale from another thread — fine for a
         debug surface)."""
         egress = (getattr(self.inner, "egress", None)
                   or getattr(self.inner, "_egress", None))
         breaker = getattr(egress, "breaker", None)
+        jrn = self._journal
         return {
             "destination": self.destination,
             "sender_id": self.sender_id,
@@ -1162,7 +1343,8 @@ class ResilientForwarder:
             "pending_spill": self.pending_spill,
             "breaker_state": (None if breaker is None
                               else breaker.state),
-            "journal": None,
+            "journal": (None if jrn is None else {
+                "bytes": jrn.size_bytes()}),
             # delta-forwarding posture: what the next
             # interval will build and why
             "delta": {
@@ -1175,6 +1357,8 @@ class ResilientForwarder:
         }
 
     def close(self):
+        if self._journal is not None:
+            self._journal.close()
         close = getattr(self.inner, "close", None)
         if close is not None:
             close()

@@ -41,11 +41,21 @@ The device is the caller's `device`, else "cpu" when
 `aggregation_backend: cpu`, else "cuda" — which raises where there is no
 card, as AggregationEngine does. With an SSF UDP listener the server
 traces its own flushes through it. Config keys this port cannot honour
-yet (durability, the network sinks, native ingest, several devices, the
+yet (the network sinks, native ingest, several devices, the
 relayed-backend fetch modes) are refused at construction with
 NotImplementedError naming their ROADMAP item (`REFUSED_KEYS`), never
 ignored. The forwarders, the import server and their wire (grpc,
 google.protobuf) are imported only when the config needs them.
+
+With `durability_enabled` the server keeps the reference's journals in
+`durability_dir` (the port's durability/ package, the same bytes): the
+forwarder's op log, the dedupe watermarks and, on an import tier, the
+engine journal, whose write-ahead import ops and flush-boundary engine
+checkpoints let a restarted global flush what the crashed one would
+have. Recovery runs in the constructor, before any listener binds. With
+`history_retention_generations` the closed intervals are kept as query
+generations behind GET /query, answered by scratch engines on the
+server's device.
 """
 
 from __future__ import annotations
@@ -77,9 +87,6 @@ _ITEM_9B2 = "item 9b.2, the network sinks"
 # (config key, refused when, ROADMAP queue A item): the keys whose value
 # this port cannot honour yet
 REFUSED_KEYS = (
-    ("durability_enabled", bool, "item 11, durability and /query"),
-    ("history_retention_generations", lambda v: v > 0,
-     "item 11, durability and /query"),
     ("native_ingest", bool, "item 13, native ingest"),
     ("tpu_num_devices", lambda v: v > 1, "item 14, multi-device engine"),
     ("tpu_flush_fetch", lambda v: v != "sync", "item 16, flush fetch modes"),
@@ -214,13 +221,28 @@ class Server:
                     cfg.flush_file, max(1, round(cfg.interval_seconds))))
         if forwarder is None:
             forwarder = self._forwarder_from_config()
-        if forwarder is not None and not isinstance(
-                forwarder, resilience.ResilientForwarder):
+        # Durable state (off by default): crash-safe journals for the
+        # sender's replay ladder and spill tier and the receiver's dedupe
+        # watermarks. Recovery runs HERE, before start() binds any
+        # listener, so a restarted process resumes its ladder under the
+        # original envelopes and a restarted global refuses ancient
+        # replays before the first request arrives.
+        self._forward_journal = None
+        self._dedupe_journal = None
+        will_wrap = forwarder is not None and not isinstance(
+            forwarder, resilience.ResilientForwarder)
+        if cfg.durability_enabled and will_wrap:
+            from .durability import ForwardJournal
+            self._forward_journal = ForwardJournal(
+                cfg.durability_dir, fsync=cfg.durability_fsync,
+                fsync_interval_s=_parse_interval(
+                    cfg.durability_fsync_interval),
+                snapshot_journal_bytes=cfg.durability_snapshot_journal_bytes)
+        if will_wrap:
             # lossless-forward contract: a failed interval's sketches
             # are parked under their envelope and replayed, or spilled
-            # and re-merged into the next flush, never dropped. No
-            # journal: that arm is ROADMAP item 11 (durability_enabled
-            # is refused above).
+            # and re-merged into the next flush, never dropped; with the
+            # journal the ladder survives a crash
             forwarder = resilience.ResilientForwarder(
                 forwarder,
                 destination=(cfg.forward_address
@@ -236,7 +258,10 @@ class Server:
                 replay_budget_s=2 * _parse_interval(cfg.retry_deadline),
                 # the flush asks next_forward_kind() what to build
                 delta_enabled=cfg.forward_delta,
-                full_resync_intervals=cfg.forward_full_resync_intervals)
+                full_resync_intervals=cfg.forward_full_resync_intervals,
+                # recovery happens inside the constructor: parked
+                # intervals come back with their original envelopes
+                journal=self._forward_journal)
         self.forwarder = forwarder   # callable(ForwardExport) or None
         # receiver side of the exactly-once contract: one dedupe ledger
         # shared by the gRPC import server and HTTP POST /import, so a
@@ -250,6 +275,68 @@ class Server:
                 max_seqs_per_sender=cfg.forward_dedupe_max_seqs_per_sender,
                 max_senders=cfg.forward_dedupe_max_senders,
                 ttl_s=_parse_interval(cfg.forward_dedupe_ttl))
+            if cfg.durability_enabled:
+                # recovery-before-listen: restore the per-sender
+                # watermarks the last incarnation flushed under, so an
+                # ancient replay is dropped, not double-counted
+                from .durability import WatermarkJournal
+                self._dedupe_journal = WatermarkJournal(
+                    cfg.durability_dir, fsync=cfg.durability_fsync,
+                    fsync_interval_s=_parse_interval(
+                        cfg.durability_fsync_interval))
+                marks = self._dedupe_journal.load()
+                if marks:
+                    n = self.dedupe_ledger.restore_watermarks(marks)
+                    resilience.DEFAULT_REGISTRY.incr(
+                        "import", "durability.recovered_watermarks", n)
+                # watermarks are journaled ONE TICK BEHIND (see
+                # _durability_tick): a seq admitted mid-tick may still
+                # sit in a worker queue when this tick's engines swap
+                self._pending_watermarks: dict = {}
+        # Global-tier engine checkpointing: every admitted import op is
+        # write-ahead journaled (in _submit_import_batch, before the
+        # worker queues and so before the sender's ack), and each flush
+        # boundary appends a self-contained checkpoint group per engine
+        # (dirty rows, interner tables, staged imports, the applied-op
+        # watermark). Recovery runs here, before any listener binds:
+        # the latest committed group per engine, then the ops above its
+        # watermark through the normal digest routing, so the restarted
+        # global flushes bit for bit what the crashed one would have.
+        # Armed on the import tiers (a gRPC import listener or a
+        # declared global), not on http_address alone.
+        self._engine_journal = None
+        self._engine_journal_armed = False
+        self._recovery = None            # restore stats for /debug, health
+        self._recovering = False         # True until start() completes
+        self._next_import_op = 0
+        self._recent_import_ops: list = []   # (op_id, bytes), 2-tick window
+        self._import_ops_evicted = False     # cap evicted since last seal
+        self._ops_at_last_checkpoint = 0
+        self._last_checkpoint_sig = None
+        self._last_checkpoint_t = None
+        self._last_checkpoint_stats = (0, 0)   # (dirty, total) piles
+        self._import_submit_lock = threading.Lock()
+        # the time-travel query tier (durability/history.py): armed with
+        # the engine journal once the flight recorder exists
+        self._history = None
+        self._query_tier = None
+        self._history_baseline = None    # (recs, marks, empty) of the
+        #                                  previous boundary
+        self._history_prev_close_ns = 0
+        if cfg.durability_enabled and cfg.durability_engine_snapshot \
+                and (cfg.grpc_listen_addresses or cfg.is_global):
+            from .durability import EngineJournal
+            self._engine_journal_armed = True
+            self._recovering = True
+            self._engine_journal = EngineJournal(
+                cfg.durability_dir, fsync=cfg.durability_fsync,
+                fsync_interval_s=_parse_interval(
+                    cfg.durability_fsync_interval),
+                snapshot_journal_bytes=cfg.durability_snapshot_journal_bytes)
+            for eng in self.engines:
+                eng.enable_dirty_tracking(
+                    cfg.durability_engine_delta_threshold)
+            self._recover_engine_state()
         # the receiving tier's fleet view (per-sender e2e and freshness,
         # behind /debug/fleet) and the import observer that phase-
         # attributes each import request and parents its spans on the
@@ -312,6 +399,12 @@ class Server:
             self.flight = observe.FlightRecorder(
                 capacity=cfg.flight_recorder_ticks,
                 max_phases=cfg.flight_recorder_max_phases)
+        # the time-travel query tier: armed with the engine journal
+        # (recovery already ran above), built here because its query
+        # ticks adopt into the flight ring just created
+        if self._engine_journal_armed \
+                and cfg.history_retention_generations > 0:
+            self._setup_history()
         self.http_api = None
         # on-demand torch.profiler capture around flush ticks (see
         # _maybe_profile_start); written under _stats_lock
@@ -460,6 +553,8 @@ class Server:
         # (veneur.watchdog.stalled_ticks_total, behind /healthz); the
         # crash-only exit stays gated on flush_watchdog_missed_flushes
         self._spawn(self._watchdog, "watchdog")
+        # the /ready "recovering" window closes once every listener runs
+        self._recovering = False
         self._started = True
 
     def _spawn(self, target, name, *args):
@@ -547,6 +642,22 @@ class Server:
                 log.exception("forwarder failed to close")
         for t in self._threads + readers:
             t.join(max(0.0, deadline - time.monotonic()))
+        # durable shutdown: push every journal record to disk and release
+        # the files and their locks, so a restart from the same
+        # durability_dir starts clean (a crash skips this: the journals'
+        # torn-write tolerance covers it)
+        for j in (self._forward_journal, self._dedupe_journal,
+                  self._engine_journal):
+            if j is not None:
+                try:
+                    j.close()
+                except Exception:
+                    log.exception("durability journal close failed")
+        if self._query_tier is not None:
+            try:
+                self._query_tier.close()
+            except Exception:
+                pass
         alive = [t.name for t in self._threads + readers if t.is_alive()]
         if alive:
             log.warning("threads still running after stop: %s", alive)
@@ -828,14 +939,460 @@ class Server:
         except queue.Full:
             self._count("worker.dropped")
 
+    # ---------------- engine checkpoint/restore (durability) -----------
+
+    # in-memory write-ahead retention cap: ops kept for snapshot
+    # compaction and the history seal (a two-checkpoint window normally
+    # holds a handful; thousands means compaction stopped running)
+    MAX_RETAINED_IMPORT_OPS = 65536
+
+    def _engine_journal_failed(self, what: str):
+        """A failing disk must not fail imports or the flush tick: the
+        process degrades to the in-memory contract, counted and loud."""
+        resilience.DEFAULT_REGISTRY.incr("import",
+                                         "durability.journal_errors")
+        log.exception(
+            "engine %s journal op failed; DISABLING engine checkpointing "
+            "for this process (in-memory aggregation unaffected; "
+            "crash-restart recovery degrades)", what)
+        j, self._engine_journal = self._engine_journal, None
+        if j is not None:
+            try:
+                j.close()
+            except Exception:
+                pass
+
+    def _submit_import_batch(self, pairs, envelope=None):
+        """The durable import submit path (the import server's and POST
+        /import's when engine checkpointing is armed): one admitted
+        request is one journal op, written ahead of any worker queue and
+        so of the sender's ack, then grouped per target engine so the
+        worker applies each engine's share atomically under the op id.
+        The submit lock makes journal order the queue order, so recovery
+        replays the original per-engine order. `envelope` rides in the
+        op so recovery can re-seed the dedupe ledger."""
+        from .cluster.importsrv import ImportedBatch
+        from .durability import records as drecords
+        nq = len(self.worker_queues)
+        with self._import_submit_lock:
+            op_id = self._next_import_op = self._next_import_op + 1
+            if self._engine_journal is not None:
+                try:
+                    payload = drecords.encode_engine_import(
+                        op_id, [pb for _d, pb in pairs], envelope)
+                    self._engine_journal.append_import(payload)
+                    self._recent_import_ops.append((op_id, payload))
+                    if len(self._recent_import_ops) > \
+                            self.MAX_RETAINED_IMPORT_OPS:
+                        self._recent_import_ops.pop(0)
+                        # the next history generation would under-count:
+                        # its seal degrades loudly
+                        self._import_ops_evicted = True
+                except Exception:
+                    self._engine_journal_failed("import write-ahead")
+            groups: dict[int, list] = {}
+            for digest, pb in pairs:
+                groups.setdefault(digest % nq, []).append(pb)
+            for qi, pbs in groups.items():
+                try:
+                    self.worker_queues[qi].put_nowait(
+                        ImportedBatch(op_id, pbs))
+                except queue.Full:
+                    # journaled but shed: recovery replays it, the live
+                    # process loses it, counted per metric
+                    self._count("worker.dropped", len(pbs))
+
+    def _recover_engine_state(self):
+        """Recovery-before-listen: rebuild the engines from the engine
+        journal, the latest committed checkpoint group of each, then
+        every import op above that engine's applied-op watermark,
+        replayed in journal order through the live path's digest routing
+        and grouped apply. Never raises on corrupt state: a fingerprint
+        or engine-count mismatch, or an undecodable group, drops the
+        whole recovery loudly (a fresh start)."""
+        from .cluster import wire
+        from .durability import records as drecords
+        from .durability.history import collect_checkpoint_groups
+        from .utils.hashing import metric_digest
+        tel, S = self.telemetry, observe.SERVER_SCOPE
+        t0 = time.monotonic_ns()
+        recs = self._engine_journal.load_records()
+        latest, op_payloads, torn, errors = \
+            collect_checkpoint_groups(recs)
+        ops: list = []
+        for payload in op_payloads:
+            try:
+                ops.append(drecords.decode_engine_import(payload))
+            except Exception:
+                errors += 1
+                log.exception(
+                    "engine recovery: undecodable import op skipped")
+        if errors:
+            tel.incr(S, "durability.engine_recovery_errors", errors)
+            log.warning("engine recovery: %d undecodable record(s) "
+                        "skipped", errors)
+        if torn:
+            tel.incr(S, "durability.engine_recovery_errors", torn)
+            log.warning(
+                "engine recovery: %d torn (uncommitted) checkpoint "
+                "group(s) dropped; falling back to the previous complete "
+                "group(s), the ops above their watermark replay", torn)
+        n = len(self.engines)
+        for idx, g in latest.items():
+            n_eng = g["meta"][0]
+            if idx >= n or n_eng != n:
+                log.error(
+                    "engine recovery REFUSED: checkpoint was taken under "
+                    "%d engine(s), this server runs %d; starting fresh",
+                    n_eng, n)
+                tel.incr(S, "durability.engine_recovery_errors")
+                self._recovery = {"refused": "engine count mismatch"}
+                return
+        restored = 0
+        try:
+            for idx, g in latest.items():
+                _n_eng, wm, gseq, fpr = g["meta"]
+                banks: dict = {}
+                for payload in g["banks"]:
+                    _i, kind, ids, leaves = drecords.decode_engine_bank(
+                        payload,
+                        leaf_names_of=self.engines[idx].bank_leaf_names)
+                    banks[kind] = (ids, leaves)
+                self.engines[idx].restore_checkpoint(
+                    fpr, gseq, wm, g["keys"], banks, g["staged"])
+                restored += 1
+        except Exception as e:
+            # a fingerprint mismatch (ValueError) or an undecodable row:
+            # a partial restore would flush silently wrong state
+            log.error("engine recovery REFUSED: %s; starting fresh", e)
+            tel.incr(S, "durability.engine_recovery_errors")
+            self._recovery = {"refused": str(e)}
+            return
+        replayed = metrics_replayed = 0
+        for op_id, pbs, env in ops:
+            if op_id > self._next_import_op:
+                self._next_import_op = op_id
+            if env is not None and self.dedupe_ledger is not None:
+                # this op's merged state is being recovered, so the
+                # sender's ambiguous-failure replay of the same chunk
+                # must dedupe, not double-count
+                self.dedupe_ledger.admit(*env)
+            by_engine: dict[int, list] = {}
+            for pb in pbs:
+                try:
+                    key = wire.metric_key_of(pb)
+                    digest = metric_digest(key.name, key.type,
+                                           key.joined_tags)
+                except Exception:
+                    self._count("import.rejected")
+                    continue
+                by_engine.setdefault(digest % n, []).append(pb)
+            applied = False
+            reroutes: list = []
+            for ei, epbs in by_engine.items():
+                eng = self.engines[ei]
+                if op_id <= eng.last_import_op:
+                    continue   # inside the restored checkpoint already
+                rerouted, rejected = eng.import_list(op_id, epbs)
+                reroutes.extend(rerouted)
+                for _pb, e in rejected:
+                    self._count("import.rejected")
+                    log.warning("engine recovery: rejected corrupted "
+                                "journaled metric: %s", e)
+                applied = True
+                metrics_replayed += len(epbs)
+            # overload-defense folds homed on other engines replay after
+            # every direct share: a reroute stamps the target's watermark
+            # to op_id, which would make the loop above skip its own share
+            for fr, pb in reroutes:
+                digest = _fold_rewrite(pb, fr)
+                self.engines[digest % n].import_list(op_id, [pb])
+            if applied:
+                replayed += 1
+            # retained for the next compaction: everything not provably
+            # inside every checkpoint
+            self._recent_import_ops.append(
+                (op_id, drecords.encode_engine_import(op_id, pbs, env)))
+        restore_ns = time.monotonic_ns() - t0
+        tel.incr(S, "durability.engine_recovered_ops", replayed)
+        tel.incr(S, "durability.engine_recovered_metrics",
+                 metrics_replayed)
+        tel.set_gauge(S, "durability.engine_restore_ns", restore_ns)
+        self._recovery = {
+            "engines_restored": restored,
+            "ops_replayed": replayed,
+            "metrics_replayed": metrics_replayed,
+            "restore_ns": restore_ns,
+            "generation": self._engine_journal.generation(),
+        }
+        if restored or replayed:
+            log.info("engine recovery: %d engine checkpoint(s) restored, "
+                     "%d import op(s) (%d metrics) replayed in %.1fms",
+                     restored, replayed, metrics_replayed,
+                     restore_ns / 1e6)
+
+    def _engine_checkpoint(self, ts: int | None = None,
+                           retired_wms: list | None = None):
+        """The flush-boundary hook: append one self-contained checkpoint
+        group per engine (the live banks' dirty rows: the swap re-zeroed
+        the rest), skip it when nothing changed (an idle global must not
+        grow the journal), and compact when the journal outgrew its
+        budget: the latest groups plus the ops of the two-checkpoint
+        retention window. With the history tier, the boundary also seals
+        the closing interval as a query generation: `ts` is its close
+        time, `retired_wms` the engines' swap-time watermarks."""
+        from .durability import records as drecords
+        tel, S = self.telemetry, observe.SERVER_SCOPE
+        recs: list = []
+        dirty = total = 0
+        staged_any = interned_any = False
+        marks = []
+        n = len(self.engines)
+        for i, eng in enumerate(self.engines):
+            snap = eng.checkpoint_state()
+            recs.extend(drecords.encode_engine_checkpoint(i, n, snap))
+            dirty += snap["piles_dirty"]
+            total += snap["piles_total"]
+            staged_any = staged_any or any(
+                snap["staged"][f] for f in ("centroids", "sets",
+                                            "counters", "gauges"))
+            interned_any = interned_any or any(
+                entries for _iv, entries in snap["interner"].values())
+            marks.append(snap["last_import_op"])
+        # a baseline with no rows, nothing staged and no interned key
+        # reconstructs to nothing: the next interval can seal as an empty
+        # generation if it also gets no op
+        empty_next = not dirty and not staged_any and not interned_any
+        if self._history is not None and ts is not None:
+            self._history_seal(ts, retired_wms or [0] * n, recs, marks,
+                               empty_next)
+        sig = (tuple(marks),
+               tuple(len(ki) for eng in self.engines
+                     for _k, _a, ki in eng._bank_table()))
+        self._last_checkpoint_stats = (dirty, total)
+        if not dirty and not staged_any \
+                and sig == self._last_checkpoint_sig:
+            # nothing to persist: every row fresh, nothing staged, no new
+            # op, no interner churn
+            tel.incr(S, "durability.engine_delta_skipped_piles", total)
+            return
+        nbytes = self._engine_journal.append_checkpoint(recs)
+        self._engine_journal.sync()
+        tel.set_gauge(S, "durability.engine_snapshot_bytes", nbytes)
+        tel.incr(S, "durability.engine_delta_skipped_piles",
+                 total - dirty)
+        self._last_checkpoint_sig = sig
+        self._last_checkpoint_t = time.monotonic()
+        with self._import_submit_lock:
+            cut = self._ops_at_last_checkpoint
+            self._recent_import_ops = [
+                o for o in self._recent_import_ops if o[0] > cut]
+            self._ops_at_last_checkpoint = self._next_import_op
+            retained = [(drecords.REC_ENGINE_IMPORT, p)
+                        for _id, p in self._recent_import_ops]
+            # under the submit lock: an op appended between the retention
+            # snapshot and the journal truncate would be lost from both
+            self._engine_journal.maybe_compact(recs + retained)
+
+    # ---------------- time-travel history and query tier --------------
+
+    def _setup_history(self):
+        """Arm the retention store and the query tier (after recovery):
+        the post-recovery consistent cut becomes the first generation's
+        baseline, and the query tier gets a factory of scratch engines
+        of the live engines' shape, on this server's device; it never
+        holds a reference to the live pipeline."""
+        import dataclasses
+
+        from .durability import HistoryStore, QueryTier
+        cfg = self.cfg
+        self._history = HistoryStore(
+            cfg.durability_dir,
+            retention_generations=cfg.history_retention_generations,
+            retention_seconds=_parse_interval(
+                cfg.history_retention_seconds),
+            fsync=cfg.durability_fsync != "never",
+            registry=self.telemetry)
+        self._history_baseline = self._capture_history_baseline()
+        # the next generation's open edge: the newest retained close (a
+        # restart continues the timeline), else 0 (the first generation
+        # claims everything before its close; flush timestamps may be
+        # scripted, so never wall-now)
+        retained = self._history.entries()
+        self._history_prev_close_ns = (retained[-1].close_ns
+                                       if retained else 0)
+        ecfg = self.engines[0].cfg
+        device = self.device
+
+        def scratch_factory(percentiles=None, aggregates=None,
+                            merge=False):
+            # merge=False: a generation's reconstruction engine,
+            # forward-enabled so its flush builds the export rows the
+            # merge consumes; merge=True: the cross-interval merge
+            # engine, global so its frame carries the requested
+            # quantiles. Neither flag is in the fingerprint.
+            kw = dict(forward_enabled=not merge, is_global=merge)
+            if percentiles is not None:
+                kw["percentiles"] = tuple(percentiles)
+            if aggregates is not None:
+                kw["aggregates"] = tuple(aggregates)
+            return AggregationEngine(dataclasses.replace(ecfg, **kw),
+                                     device=device)
+
+        self._query_tier = QueryTier(
+            self._history, scratch_factory, len(self.engines),
+            flight=self.flight, registry=self.telemetry,
+            scope=observe.SERVER_SCOPE,
+            engines_describe=self.engines[0].engines_describe(),
+            max_concurrent=cfg.query_max_concurrent,
+            cache_entries=cfg.query_cache_entries,
+            timeout_s=_parse_interval(cfg.query_timeout))
+
+    def _capture_history_baseline(self):
+        """(records, per-engine watermarks, provably-empty flag) of a
+        consistent cut across every engine: the baseline the next closed
+        interval reconstructs on."""
+        from .durability import records as drecords
+        recs: list = []
+        marks: list = []
+        empty = True
+        n = len(self.engines)
+        for i, eng in enumerate(self.engines):
+            snap = eng.checkpoint_state()
+            recs.extend(drecords.encode_engine_checkpoint(i, n, snap))
+            marks.append(snap["last_import_op"])
+            if snap["piles_dirty"] or any(
+                    snap["staged"][f] for f in ("centroids", "sets",
+                                                "counters", "gauges")) \
+                    or any(entries for _iv, entries
+                           in snap["interner"].values()):
+                empty = False
+        return recs, marks, empty
+
+    def _history_seal(self, ts: int, retired_wms: list, recs: list,
+                      marks: list, empty_next: bool = False):
+        """Seal the interval that just flushed as one query generation:
+        the previous boundary's checkpoint groups as its baseline, the
+        ops write-aheaded above the baseline's lowest watermark (the
+        per-engine cut is applied at query time), the flush timestamp as
+        its close. A failing disk disables history loudly without
+        failing the tick."""
+        tel, S = self.telemetry, observe.SERVER_SCOPE
+        try:
+            base_recs, base_marks, base_empty = self._history_baseline
+            min_wm = min(base_marks) if base_marks else 0
+            with self._import_submit_lock:
+                op_recs = [(i, p) for i, p in self._recent_import_ops
+                           if i > min_wm]
+                evicted, self._import_ops_evicted = \
+                    self._import_ops_evicted, False
+            if evicted:
+                tel.incr(S, "durability.history_truncated")
+                log.warning(
+                    "history: MAX_RETAINED_IMPORT_OPS (%d) evicted import "
+                    "ops this interval; the sealed generation under-"
+                    "counts: raise the cap or shorten the flush interval",
+                    self.MAX_RETAINED_IMPORT_OPS)
+            close_ns = int(ts) * 1_000_000_000
+            if base_empty and not op_recs:
+                # a provably empty interval: a manifest row, no segment
+                self._history.append_empty(
+                    close_ns, self._history_prev_close_ns)
+            else:
+                self._history.append(close_ns,
+                                     self._history_prev_close_ns,
+                                     retired_wms, base_recs, op_recs)
+            self._history_baseline = (recs, marks, empty_next)
+            self._history_prev_close_ns = close_ns
+            hs = self._history.debug_state()
+            tel.set_gauge(S, "history.generations", hs["generations"])
+            tel.set_gauge(S, "history.bytes", hs["bytes"])
+        except Exception:
+            tel.incr(S, "durability.journal_errors")
+            log.exception(
+                "history generation seal failed; DISABLING the time-"
+                "travel tier for this process (aggregation and crash "
+                "recovery unaffected)")
+            self._history = None
+            if self._query_tier is not None:
+                self._query_tier.close()
+                self._query_tier = None
+
+    def _serve_query(self, params: dict) -> dict:
+        """GET /query: runs on the query tier's own executor, never on
+        the ingest or flush path."""
+        from .durability import QueryError
+        tier = self._query_tier
+        if tier is None:    # disk-error degrade after the listener bound
+            raise QueryError(
+                503, "time-travel tier disabled after a disk error "
+                     "(see veneur.durability.journal_errors_total)")
+        return tier.query(params)
+
+    def _durability_tick(self, ts: int, results: list, tick):
+        """The flush boundary's durability phase: the engine checkpoint
+        (and the history seal), the forward journal's sync and
+        compaction, and last tick's dedupe watermarks."""
+        dp = -1
+        dtok = None
+        if tick is not None and (
+                self._forward_journal is not None
+                or self._engine_journal is not None
+                or (self._dedupe_journal is not None
+                    and self.dedupe_ledger is not None)):
+            dp = tick.start("durability")
+            dtok = observe.set_current_tick(tick, dp)
+        try:
+            if self._engine_journal is not None:
+                try:
+                    self._engine_checkpoint(
+                        ts, [r.stats.get("retired_import_op", 0)
+                             for r in results])
+                except Exception:
+                    self._engine_journal_failed("checkpoint")
+            if self._forward_journal is not None:
+                jt = getattr(self.forwarder, "journal_tick", None)
+                if jt is not None:
+                    jt()  # journal failures degrade inside the forwarder
+            if self._dedupe_journal is not None and \
+                    self.dedupe_ledger is not None:
+                try:
+                    # record LAST tick's snapshot and capture this one's:
+                    # a seq admitted during this tick may not be in the
+                    # state it flushed (worker-queue residency)
+                    marks = self._pending_watermarks
+                    self._pending_watermarks = \
+                        self.dedupe_ledger.max_admitted()
+                    self._dedupe_journal.record(marks)
+                    self._dedupe_journal.sync()
+                except Exception:
+                    resilience.DEFAULT_REGISTRY.incr(
+                        "import", "durability.journal_errors")
+                    log.exception(
+                        "dedupe watermark journal failed; DISABLING it "
+                        "for this process (in-memory dedupe unaffected)")
+                    try:
+                        self._dedupe_journal.close()
+                    except Exception:
+                        pass
+                    self._dedupe_journal = None
+        finally:
+            if dtok is not None:
+                observe.reset_current_tick(dtok)
+            if dp != -1:
+                tick.finish(dp)
+
     def _start_import_listener(self, addr: str):
         """Global-mode gRPC receive path (importsrv): forwarded metrics
-        are re-hashed onto the worker queues and merged via Combine."""
+        are re-hashed onto the worker queues and merged via Combine;
+        with engine checkpointing each request is one journaled op."""
         from .cluster.importsrv import start_import_server
 
         server, port = start_import_server(
             addr, self._submit_import, ledger=self.dedupe_ledger,
             observer=self.import_observer,
+            submit_batch=(self._submit_import_batch
+                          if self._engine_journal is not None else None),
             engine_stamp=self.engine_stamp,
             note_stamp=self._note_sketch_stamp,
             merge_sketches=self.merge_prefix_sketches)
@@ -863,9 +1420,15 @@ class Server:
                      if self.cfg.debug_flush_profile else None),
             submit=submit, ledger=self.dedupe_ledger,
             observer=self.import_observer,
+            submit_batch=(self._submit_import_batch
+                          if self._engine_journal is not None else None),
             engine_stamp=self.engine_stamp,
             note_stamp=self._note_sketch_stamp,
-            merge_sketches=self.merge_prefix_sketches)
+            merge_sketches=self.merge_prefix_sketches,
+            # the time-travel query tier; absent, GET /query is 404, so
+            # an operator can tell "not armed" from "bad query"
+            query=(self._serve_query
+                   if self._query_tier is not None else None))
         self.http_api.start()
         self._threads.append(self.http_api.thread)
 
@@ -1170,6 +1733,9 @@ class Server:
             tick.finish(fo)
         if self.forwarder is not None:
             self._forward(merged_export, tick)
+        # durability flush boundary: the engine checkpoint, the forward
+        # journal's sync and compaction, the dedupe watermarks
+        self._durability_tick(ts, results, tick)
 
         # Overload governor boundary: adapt the shed rate from this
         # tick's wall duration (overrun = the flush can't keep up with
@@ -1334,8 +1900,8 @@ class Server:
 
     def _debug_flush_state(self) -> dict:
         """GET /debug/flush payload: the flight-recorder ring plus the
-        forward ladder, breaker and dedupe-ledger state, under the
-        reference's keys (the durable server's parts read None here)."""
+        forward ladder, breaker, journal and dedupe-ledger state, under
+        the reference's keys."""
         fwd = self.forwarder
         state = {
             "flush_count": self.flush_count,
@@ -1351,12 +1917,19 @@ class Server:
                           else {"enabled": False}),
             "dedupe_ledger": None,
             "durability": {
-                "forward_journal_bytes": None,
-                "watermark_journal_bytes": None,
-                "engine_checkpoint": None,
-                "history": None,
+                "forward_journal_bytes": (
+                    self._forward_journal.size_bytes()
+                    if self._forward_journal is not None else None),
+                "watermark_journal_bytes": (
+                    self._dedupe_journal.size_bytes()
+                    if self._dedupe_journal is not None else None),
+                "engine_checkpoint": self._engine_checkpoint_state(),
+                # the retained generations of the time-travel tier
+                "history": (self._history.debug_state()
+                            if self._history is not None else None),
             },
-            "query": None,
+            "query": (self._query_tier.debug_state()
+                      if self._query_tier is not None else None),
             "registry": {
                 "server": self.telemetry.debug_state(),
                 "process": observe.DEFAULT_REGISTRY.debug_state(),
@@ -1370,6 +1943,31 @@ class Server:
             }
         return state
 
+    def _engine_checkpoint_state(self) -> dict | None:
+        """The /debug/flush checkpoint block: generation, journal and
+        last-checkpoint bytes, the dirty/total pile ratio of the last
+        boundary, the last checkpoint's age and this incarnation's
+        restore stats (None when engine checkpointing is off)."""
+        if not self._engine_journal_armed:
+            return None
+        j = self._engine_journal
+        dirty, total = self._last_checkpoint_stats
+        return {
+            "enabled": j is not None,   # False: degraded (disk error)
+            "generation": j.generation() if j is not None else None,
+            "journal_bytes": j.size_bytes() if j is not None else None,
+            "last_snapshot_bytes": (j.last_checkpoint_bytes
+                                    if j is not None else None),
+            "piles_dirty": dirty,
+            "piles_total": total,
+            "dirty_ratio": round(dirty / total, 6) if total else 0.0,
+            "last_checkpoint_age_s": (
+                round(time.monotonic() - self._last_checkpoint_t, 3)
+                if self._last_checkpoint_t is not None else None),
+            "pending_import_ops": len(self._recent_import_ops),
+            "restore": self._recovery,
+        }
+
     # health verdict threshold: a flush is STALLED once its lag exceeds
     # this many intervals
     HEALTH_STALL_INTERVALS = 1.5
@@ -1378,10 +1976,12 @@ class Server:
                      fwd_state: dict | None = None) -> dict:
         """Structured verdicts for GET /healthz and /ready. `healthy` is
         false only when the flush loop is stalled; an open forward
-        breaker, spilled sketches awaiting replay, the governor shedding
-        or a worker queue over 90% full flag `status: degraded` without
-        failing the probe. `now` is injectable; `fwd_state` lets a caller
-        that already computed the forwarder's debug_state pass it in."""
+        breaker, spilled sketches awaiting replay, a journal disabled by
+        a disk error, a refused recovery, the governor shedding or a
+        worker queue over 90% full flag `status: degraded` without
+        failing the probe; /ready is false while recovery runs. `now` is
+        injectable; `fwd_state` lets a caller that already computed the
+        forwarder's debug_state pass it in."""
         now = time.monotonic() if now is None else now
         interval = self.cfg.interval_seconds
         lag = now - self._last_flush_ok
@@ -1404,6 +2004,30 @@ class Server:
                 "pending_spill": pending,
                 "ladder_depth": len(st["ladder"]),
             }
+        degraded_journals = []
+        if self.cfg.durability_enabled:
+            if (self._forward_journal is not None
+                    and getattr(self.forwarder, "_journal", None) is None
+                    and isinstance(self.forwarder,
+                                   resilience.ResilientForwarder)):
+                degraded_journals.append("forward")
+            if self.dedupe_ledger is not None \
+                    and self._dedupe_journal is None:
+                degraded_journals.append("dedupe_watermarks")
+            if self._engine_journal_armed and self._engine_journal is None:
+                degraded_journals.append("engine")
+            checks["journal"] = {"ok": not degraded_journals,
+                                 "degraded": degraded_journals}
+        if self._engine_journal_armed or self._recovery is not None:
+            # recovery-before-listen: in progress until start() completes,
+            # then the restore stats; a REFUSED recovery (journaled state
+            # discarded) keeps ok false
+            refused = bool((self._recovery or {}).get("refused"))
+            checks["recovery"] = {
+                "ok": not self._recovering and not refused,
+                "in_progress": self._recovering,
+                **(self._recovery or {}),
+            }
         if self.admission is not None:
             rate = self.admission.shed_rate
             checks["overload"] = {"ok": rate >= 1.0, "shed_rate": rate}
@@ -1411,10 +2035,13 @@ class Server:
                     default=0.0)
         checks["queues"] = {"ok": qfill < 0.9, "fill": round(qfill, 4)}
         degraded = any(not c["ok"] for c in checks.values())
+        recovering = self._recovering
         return {
             "healthy": not stalled,
-            "ready": started and not self._stop.is_set(),
-            "status": ("stalled" if stalled
+            "ready": started and not recovering
+                     and not self._stop.is_set(),
+            "status": ("recovering" if recovering
+                       else "stalled" if stalled
                        else "degraded" if degraded else "ok"),
             "checks": checks,
         }
@@ -1576,6 +2203,35 @@ class Server:
         if self.dedupe_ledger is not None:
             tel.set_gauge(S, "forward.dedupe_ledger_size",
                           self.dedupe_ledger.size())
+        if self._engine_journal is not None:
+            # the engine checkpoint's self-metrics, present at zero while
+            # armed; the recovered_* counters were counted during
+            # recovery and drain here
+            for name in ("durability.engine_delta_skipped_piles",
+                         "durability.engine_recovered_ops",
+                         "durability.engine_recovered_metrics",
+                         "durability.engine_recovery_errors"):
+                tel.mark(S, name, 0)
+            dirty, total = self._last_checkpoint_stats
+            tel.set_gauge(S, "durability.engine_snapshot_piles_dirty",
+                          dirty)
+            tel.set_gauge(S, "durability.engine_snapshot_piles_total",
+                          total)
+            tel.set_gauge(S, "durability.engine_snapshot_bytes",
+                          self._engine_journal.last_checkpoint_bytes)
+            tel.set_gauge(S, "durability.engine_restore_ns",
+                          (self._recovery or {}).get("restore_ns", 0))
+        journals = [j for j in (self._forward_journal,
+                                self._dedupe_journal,
+                                self._engine_journal) if j is not None]
+        if journals:
+            # the counters ride the process registry's drain below; the
+            # level-style metrics are gauges read from the journals
+            tel.set_gauge(S, "durability.journal_bytes",
+                          sum(j.size_bytes() for j in journals))
+            tel.set_gauge(S, "durability.snapshot_duration_ns",
+                          max(j.journal.last_snapshot_ns
+                              for j in journals))
         if eng_stats is not None:
             tel.mark(S, "samples.processed", eng_stats["samples"])
             tel.mark(S, "samples.dropped_no_slot",

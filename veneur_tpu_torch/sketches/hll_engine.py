@@ -25,6 +25,7 @@ class HLLEngine:
 
     id = "hll"
     wire_version = 1
+    bank_leaves = ("registers",)   # the durability leaf order
     error_contract = "relative stderr ~1.04/sqrt(m) (LogLog-Beta)"
 
     @property

@@ -281,6 +281,11 @@ class REQEngine:
     id = "req"
     wire_version = 1
     import_strategy = "direct"    # forwarded items re-insert as points
+    # the durability leaf order: n and ncomp are i32, as in the JAX
+    # package's bank, so a checkpoint crosses between the two
+    bank_leaves = ("value", "weight", "n", "ncomp",
+                   "vmin", "vmax", "vsum", "count", "recip", "vsum_lo",
+                   "count_lo", "recip_lo")
     error_contract = ("~1% relative value error at p99.9 (protected "
                       "tail items are exact samples); mid-range "
                       "distribution-dependent; exact count/sum/min/max")

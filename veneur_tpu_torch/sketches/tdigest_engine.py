@@ -26,6 +26,11 @@ class TDigestEngine:
     id = "tdigest"
     wire_version = 1
     import_strategy = "cluster"   # precluster foreign piles (cluster_rows)
+    # the durability leaf order (durability/records.py): the bank's leaves
+    # as the engine checkpoint frames them
+    bank_leaves = ("mean", "weight", "buf_value", "buf_weight", "buf_n",
+                   "vmin", "vmax", "vsum", "count", "recip", "vsum_lo",
+                   "count_lo", "recip_lo")
     error_contract = ("absolute rank error ~1/compression per cluster "
                       "(k1 tail-dense); exact count/sum/min/max")
 

@@ -260,6 +260,7 @@ class ULLEngine:
 
     id = "ull"
     wire_version = 1
+    bank_leaves = ("registers",)   # the durability leaf order
     error_contract = ("ML estimation, relative stderr ~0.85% at "
                       "p=13 (8 KiB/slot — half the HLL p=14 bank)")
 
