@@ -232,8 +232,37 @@ the run:
                DURABLE_LAUNCHES. Printed: each query's wall and its
                query.restore / merge / estimate phases from its tick.
 
+  12. native   the port's Server with native_ingest at the deployment
+               defaults (Config() widths, one engine, the pump at
+               native_pump_batch 32768), its UDP statsd listener and an
+               SSF UDP listener in the C++ bridge (native/vtpu_ingest.cpp,
+               built with g++ into veneur_tpu_torch/_build/), the HTTP
+               listener and a capture sink. S1: phase 7's traffic over
+               real UDP through the C++ readers, paced so nothing drops,
+               drained and flushed; S2 empty. Then the pump stopped, the
+               rings filled with S1's datagrams through handle_packet by
+               four writer threads and NativePump.drain() timed, twice
+               (the second under torch.profiler's CUDA trace), flushed
+               as S3. Then phase 8's 10000 UDP spans through the native
+               SSF readers, a span with a STATUS sample (the Python
+               fallback) and a garbage datagram, flushed as S4. Checked:
+               the bridge's lines, datagrams, parse errors, slow-path
+               lines, ring and bank-full drops; S1's rows, status rows
+               and events as phase 7 holds them, packet.received equal
+               to the datagrams sent; S2 only veneur.* rows; S3's rows
+               against the doubled truth; S4's spans counted exactly,
+               one SSF error, the SSF rows, the indicator timer and the
+               status row against truth; the launches of each step equal
+               NATIVE_LAUNCHES; stop() within 10 s, no thread left.
+               Printed: (a) the UDP lines/s from the first send to
+               drain() returning, (b) the pump's samples/s into the banks
+               with the device's busy ms and the host's rest, the first
+               landing against the pump's full landings, (c) the native
+               SSF spans/s and samples/s, (d) each flush's swap, merge,
+               assembly and the collector's pauses.
+
 Then it prints one JSON line describing every kernel (its launches are
-those of phases 5, 7, 8, 9, 10 and 11, the main paths), the card's name
+those of phases 5 and 7-12, the main paths), the card's name
 and power limit as nvidia-smi reports them, and, last, the device line
 {"ok": true, "device": {...}}. Without a card, or without the package
 beside it, it exits non-zero and prints no result.
@@ -4380,6 +4409,470 @@ def print_durable_timings(d, card):
           f"{s['rows']} rows bit for bit the oracle's | {card}")
 
 
+# ------------------------------------------------------------- phase 12
+
+# phase 12's native SSF traffic: phase 8's UDP spans (SSF_PLAN's
+# udp_spans and udp_keys, its indicator_every); and the writer threads
+# that fill the bridge's rings for the pump's own landing rate: a writer
+# thread owns one of a ring's eight ways (native_ring_capacity / 8 =
+# 131,072 samples at the default), so S1's 200,000 timer samples need
+# more than one
+NATIVE_SSF_PLAN = {"spans": SSF_PLAN["udp_spans"],
+                   "keys": SSF_PLAN["udp_keys"],
+                   "every": SSF_PLAN["indicator_every"]}
+NATIVE_FILL_THREADS = 4
+
+# phase 12's launches, predicted from the code before its first run
+# (PERF.md section 6): the probe at the one engine's construction;
+# no kernel at ingest: S1 gives a timer key 10 samples, far from the
+# buffer depth of 256, so no pump batch of up to 32768 samples overfills
+# a slot (no hot-slot sidestep) and no landing overflows a buffer (no
+# compress in add_batch's loop), and sets land through the HLL insert
+# (torch); S1's and S2's flushes as phase 7's (the baseline rows once,
+# then the work set). `pump`: two fills of S1's lines drained by the
+# pump, 20 samples a timer key: none. S3 (both fills): the work set
+# once. `ssf`: the indicator timer is one key taking every tenth span's
+# duration, 1000 samples paced in bursts the pump lands one at a time
+# (under 256 of them a batch, so no sidestep): its buffer overflows as
+# the total passes 256, 512 and 768, one whole-bank compress each; the
+# fallback span's sample (the 1001st) rides the Python path. S4: the
+# work set once
+NATIVE_LAUNCHES = {
+    "construction": _launch_row(probe=1),
+    "ingest": _launch_row(),
+    "S1": _launch_row(compress=2, hll_stats=2),
+    "S2": _launch_row(compress=1, hll_stats=1),
+    "pump": _launch_row(),
+    "S3": _launch_row(compress=1, hll_stats=1),
+    "ssf": _launch_row(compress=3),
+    "S4": _launch_row(compress=1, hll_stats=1),
+}
+
+
+def native_rcvbuf(cfg):
+    """The receive buffer the kernel gives a UDP socket asked for
+    cfg.read_buffer_size_bytes: what the bridge's C++ readers get (the
+    same request, the same kernel caps), read from a probe socket."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                     cfg.read_buffer_size_bytes)
+        return s.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+
+
+def pump_settled(srv):
+    """Every sample the bridge staged has been landed by the pump, and the
+    worker queues (the slow path's lines) are under half full."""
+    st = srv.native_bridge.stats()
+    return (st["samples"] - st["ring_drops"] == srv.native_pump.landed
+            and all(q.qsize() < q.maxsize // 2 for q in srv.worker_queues))
+
+
+def send_paced_native(srv, payloads, dest, taken, cost=0):
+    """Send each payload to `dest` in bursts of at most a quarter of the
+    C++ readers' receive buffer (a payload charged its length plus
+    `cost`), each followed by a wait until `taken()` counts every payload
+    sent and the pump has landed everything staged. Returns the pacing."""
+    rcvbuf = native_rcvbuf(srv.cfg)
+    budget = max(4 * 4096, rcvbuf // 4)
+    base = taken()
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+        i = 0
+        while i < len(payloads):
+            burst = 0
+            while i < len(payloads) and (
+                    burst == 0 or burst + len(payloads[i]) + cost <= budget):
+                sock.sendto(payloads[i], dest)
+                burst += len(payloads[i]) + cost
+                i += 1
+            sent = i
+            wait_until(lambda: taken() - base >= sent and pump_settled(srv),
+                       120, f"{sent} datagrams taken and landed")
+    return {"rcvbuf": rcvbuf, "burst_bytes": budget}
+
+
+def fill_rings(srv, dgrams, n_threads):
+    """Hand `dgrams` to the bridge (Server.handle_packet) from `n_threads`
+    writer threads, contiguous shares each; returns the seconds taken."""
+    share = -(-len(dgrams) // n_threads)
+    threads = [threading.Thread(
+        target=lambda part=dgrams[i:i + share]: [srv.handle_packet(d)
+                                                for d in part])
+        for i in range(0, len(dgrams), share)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return time.perf_counter() - t0
+
+
+def drain_device_ms(fn, device):
+    """Device busy ms of `fn()`: every kernel and copy torch.profiler's
+    CUDA trace holds, summed; None off the card or when the trace holds
+    no device time. An empty capture first pays the tracer's set-up."""
+    if device.type != "cuda":
+        fn()
+        return None
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device=device).add_(1)
+        sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(device)
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA]
+    if not evs:
+        return None
+    return sum(ev.self_device_time_total for ev in evs) / 1e3
+
+
+def phase_native(device, cfg_kw=None, plan=None, ssf_plan=None):
+    """The port's Server with native_ingest at the deployment defaults on
+    `device`, a UDP statsd listener, an SSF UDP listener (the native SSF
+    path), indicator_span_timer_name and the HTTP listener: S1 (phase 7's
+    traffic) over real UDP through the C++ readers, paced, drained and
+    flushed; an empty S2; the pump's own landing rate on two fills of
+    S1's lines made with the pump stopped, flushed as S3; phase 8's UDP
+    spans with a STATUS span and a garbage datagram through the native
+    SSF readers, flushed as S4. Rows against numpy truth, the bridge's
+    and the server's counters, the launches against NATIVE_LAUNCHES (on
+    the card) and a clean stop. `cfg_kw`, `plan` and `ssf_plan` override
+    the widths and the traffic (CPU rehearsals at small shapes)."""
+    from veneur_tpu_torch import kernels, ssf
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.ingest.parser import parse_packet
+    from veneur_tpu_torch.metrics import MetricType
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.basic import CaptureMetricSink
+    plan = plan or SERVER_PLAN
+    ssf_plan = ssf_plan or NATIVE_SSF_PLAN
+    rng = np.random.default_rng(17)
+    lines, truth, checks, titles = server_traffic(rng, plan)
+    cfg = Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                 ssf_listen_addresses=["udp://127.0.0.1:0"],
+                 http_address=f"127.0.0.1:{free_port(socket.SOCK_STREAM)}",
+                 interval="3600s", hostname="chip", native_ingest=True,
+                 indicator_span_timer_name=SSF_INDICATOR,
+                 **(cfg_kw or {}))
+    dgrams = pack_datagrams(lines, cfg.metric_max_length)
+    cap = CaptureMetricSink()
+    launches = {}
+
+    def counted(label, fn):
+        before = dict(kernels.launches)
+        res = fn()
+        launches[label] = {k: n - before[k]
+                           for k, n in kernels.launches.items()}
+        return res
+
+    kernels.reset_launches()
+    srv = counted("construction",
+                  lambda: Server(cfg, sinks=[cap], device=device))
+    check(srv.native_bridge is not None and srv._native_ssf
+          and len(srv.engines) == 1, "no native bridge or native SSF path")
+    eng = srv.engines[0]
+    # (samples, ms) of every histogram landing, each ended by a
+    # synchronize, so the first can be held against the later ones
+    landings = []
+    land = eng.ingest_histo_batch
+
+    def timed_landing(slots, *a, **kw):
+        t0 = time.perf_counter()
+        land(slots, *a, **kw)
+        sync(device)
+        landings.append((len(slots), (time.perf_counter() - t0) * 1e3))
+
+    eng.ingest_histo_batch = timed_landing
+    bridge, pump = srv.native_bridge, srv.native_pump
+    out = {"datagrams": len(dgrams), "lines": len(lines),
+           "pump_batch": pump.batch}
+    flushes, gc_ms = [], {}
+
+    def flush(label, n):
+        check(srv.drain(timeout=120), "drain() timed out")
+        before = dict(srv._last_bridge_stats)
+        with GcPauses() as gcp:
+            counted(label, lambda: srv.flush_once(timestamp=4000 + n))
+        after = srv._last_bridge_stats
+        check(cap.wait_for_flush(n, timeout=120),
+              f"{label}: the sink got no flush")
+        for t in list(srv._sink_inflight.values()):
+            t.join(120)
+        rows = {(m.name, tuple(m.tags)): m for m in cap.flushes[n - 1]}
+        flushes.append(rows)
+        out[label] = {
+            k.split(".")[-1]: rows[(f"veneur.flush.{k}", ())].value / 1e6
+            for k in ("total_duration_ns", "swap_duration_ns",
+                      "merge_duration_ns", "assembly_duration_ns")}
+        out[label]["rows"] = len(rows)
+        out[label]["gc_ms"] = gcp.ms
+        # the bridge counts its SSF readers' datagrams in packet.received
+        # too (as the reference's does): the self-traced spans of the
+        # flush before, and phase 8's spans in S4
+        out[label]["ssf_datagrams"] = sum(
+            after.get(k, 0) - before.get(k, 0)
+            for k in ("ssf_spans", "ssf_fallbacks", "ssf_errors"))
+        return rows
+
+    def self_row(rows, name):
+        return rows[(f"veneur.{name}", ())].value
+
+    def data_of(rows, prefixes=None):
+        data = [m for m in rows.values() if not m.name.startswith("veneur.")
+                and m.type != MetricType.STATUS
+                and (prefixes is None or m.name.startswith(prefixes))]
+        return types.SimpleNamespace(metrics=data, frame=data)
+
+    def check_s1_like(rows, label, times):
+        want = times * len(dgrams) + out[label]["ssf_datagrams"]
+        check(self_row(rows, "packet.received_total") == want,
+              f"{label} packet.received "
+              f"{self_row(rows, 'packet.received_total')}, expected {want}")
+        check(self_row(rows, "packet.error_total") == times,
+              f"{label} packet.error {self_row(rows, 'packet.error_total')}")
+        check(self_row(rows, "worker.dropped_total") == 0,
+              f"{label}: ring or worker drops")
+        check(self_row(rows, "samples.dropped_no_slot_total") == 0,
+              f"{label}: bank-full drops")
+        status = {m.name: m.value for m in rows.values()
+                  if m.type == MetricType.STATUS}
+        check(status == {k: float(v) for k, v in checks.items()},
+              f"{label} status rows: {len(status)} of {len(checks)} right")
+
+    threads_before = set(threading.enumerate())
+    try:
+        t0 = time.perf_counter()
+        srv.start()    # the landings' warm-up at the pump's width first
+        out["start_s"] = time.perf_counter() - t0
+        check(srv.trace_client is not None, "no self-tracing client")
+        st0 = bridge.stats()
+
+        def ingest():
+            t0 = time.perf_counter()
+            out.update(send_paced_native(
+                srv, dgrams, ("127.0.0.1", srv.bound_port()),
+                lambda: bridge.stats()["packets"]))
+            check(srv.drain(timeout=120), "drain() timed out")
+            return time.perf_counter() - t0
+
+        secs = counted("ingest", ingest)
+        st = bridge.stats()
+        out["bridge_S1"] = {k: st[k] - st0[k] for k in
+                            ("packets", "lines", "samples", "parse_errors",
+                             "slow_routed", "ring_drops", "drops_no_slot")}
+        b = out["bridge_S1"]
+        check(b["lines"] == len(lines) and b["packets"] == len(dgrams),
+              f"bridge took {b['lines']} lines in {b['packets']} datagrams")
+        check(b["parse_errors"] == 1 and b["ring_drops"] == 0
+              and b["drops_no_slot"] == 0
+              and b["slow_routed"] == len(checks) + len(titles),
+              f"bridge S1 counters {b}")
+        out["ingest_s"] = secs
+        out["datagrams_per_s"] = len(dgrams) / secs
+        out["lines_per_s"] = len(lines) / secs
+        s1 = flush("S1", 1)
+        check_s1_like(s1, "S1", 1)
+        out["worst"] = check_against_truth(data_of(s1), truth, eng, "S1")
+        check(sorted(e.title for e in cap.events) == sorted(titles),
+              f"events reaching flush_other: {len(cap.events)}")
+        s2 = flush("S2", 2)
+        check(all(k[0].startswith("veneur.") for k in s2),
+              "S2 carried rows other than veneur.*")
+        for ph in ("engine", "telemetry", "fanout", "total"):
+            key = (f"veneur.flush.phase.{ph}.count", ())
+            check(key in s2 and s2[key].value == 1.0,
+                  f"S2: no timer of S1's {ph} phase")
+        check(self_row(s2, "packet.received_total")
+              == out["S2"]["ssf_datagrams"] > 0,
+              "S2's datagrams are not S1's self-traced spans")
+
+        # (b) the pump's own landing rate: the rings filled with the pump
+        # stopped, then NativePump.drain(); twice, the second under the
+        # profiler's CUDA trace for the device's busy time
+        n_first = len(landings)
+
+        def pump_runs():
+            recs = []
+            for profiled in (False, True):
+                pump.stop()
+                fill_s = fill_rings(srv, dgrams, NATIVE_FILL_THREADS)
+                st = bridge.stats()
+                check(st["ring_drops"] == 0, "the fill dropped samples")
+                staged = st["samples"] - pump.landed
+                landed0 = pump.landed
+
+                def drain():
+                    check(pump.drain(timeout=120), "pump drain timed out")
+                    sync(device)
+
+                t0 = time.perf_counter()
+                dev_ms = (drain_device_ms(drain, device) if profiled
+                          else drain())
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                n = pump.landed - landed0
+                check(n == staged, f"pump landed {n} of {staged} samples")
+                recs.append({"fill_s": fill_s, "samples": n,
+                             "wall_ms": wall_ms, "device_ms": dev_ms,
+                             "profiled": profiled,
+                             "samples_per_s": n / (wall_ms / 1e3)})
+                pump.start()
+            return recs
+
+        out["pump"] = counted("pump", pump_runs)
+        pump_landings = landings[n_first:]
+        out["landings"] = {
+            "first": landings[0] if landings else None,
+            "pump_full_ms": sorted(ms for n, ms in pump_landings
+                                   if n == pump.batch)}
+        twice = Truth()
+        for ln in lines:
+            if not ln.startswith((b"_", b"srv.bad")):
+                m = parse_packet(ln)
+                twice.add_parsed(m)
+                twice.add_parsed(m)
+        s3 = flush("S3", 3)
+        check_s1_like(s3, "S3", 2)
+        out["worst_S3"] = check_against_truth(data_of(s3), twice, eng, "S3")
+
+        # (c) native SSF: phase 8's UDP spans, then a span with a STATUS
+        # sample (the Python fallback) and a garbage datagram; S3's
+        # self-traced spans are let in first so S4's count is exact
+        ssf_truth = Truth()
+        spans = ssf_spans(rng, ssf_plan["spans"], ssf_plan["keys"], "ssfu",
+                          ssf_plan["every"], time.time_ns(), ssf_truth)
+        fb = ssf_spans(rng, 1, (1, 1, 1, 1), "ssfs", ssf_plan["every"],
+                       time.time_ns(), ssf_truth)[0]
+        fb.metrics.append(ssf.status("ssfs_check.db", 2, message="down"))
+        payloads = [s.SerializeToString() for s in spans]
+        folded = srv._last_bridge_stats["ssf_spans"]
+        seen = [-1]
+
+        def quiet():
+            cur = bridge.stats()["ssf_spans"]
+            still, seen[0] = cur == seen[0], cur
+            time.sleep(0.25)
+            return still
+
+        srv.trace_client.flush()
+        wait_until(quiet, 30, "S3's self-traced spans")
+        base = bridge.stats()
+        self_spans = base["ssf_spans"] - folded
+        dest = ("127.0.0.1", srv.ssf_native_port)
+
+        def ssf_ingest():
+            t0 = time.perf_counter()
+            out.update({"ssf_" + k: v for k, v in send_paced_native(
+                srv, payloads, dest, lambda: bridge.stats()["ssf_spans"],
+                cost=SKB_COST).items()})
+            check(srv.drain(timeout=120), "drain() timed out")
+            out["ssf_s"] = time.perf_counter() - t0
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+                sock.sendto(fb.SerializeToString(), dest)
+                sock.sendto(b"garbage\xff", dest)
+            wait_until(lambda: srv.spans_received >= 1
+                       and bridge.stats()["ssf_errors"] > base["ssf_errors"],
+                       30, "the fallback span and the garbage datagram")
+            check(srv.drain(timeout=120), "drain() timed out")
+
+        counted("ssf", ssf_ingest)
+        st = bridge.stats()
+        out["bridge_ssf"] = {k: st[k] - base[k] for k in
+                             ("ssf_spans", "ssf_fallbacks", "ssf_errors",
+                              "samples", "ring_drops")}
+        bs = out["bridge_ssf"]
+        check(bs["ssf_spans"] == len(spans) and bs["ssf_fallbacks"] == 1
+              and bs["ssf_errors"] == 1 and bs["ring_drops"] == 0,
+              f"bridge SSF counters {bs}")
+        n_ind = sum(s.indicator for s in spans)
+        out["ssf_spans"] = len(spans)
+        out["ssf_spans_per_s"] = len(spans) / out["ssf_s"]
+        out["ssf_samples_per_s"] = (4 * len(spans) + n_ind) / out["ssf_s"]
+        s4 = flush("S4", 4)
+        check(self_row(s4, "ssf.received_total") == self_spans + len(spans)
+              + 1, f"S4 spans received {self_row(s4, 'ssf.received_total')},"
+              f" sent {len(spans)} + 1 + {self_spans} self-traced")
+        check(self_row(s4, "ssf.error_total") == 1, "S4 ssf errors")
+        check(self_row(s4, "packet.received_total")
+              == out["S4"]["ssf_datagrams"] == self_spans + len(spans) + 2,
+              f"S4 packet.received {self_row(s4, 'packet.received_total')}")
+        check(self_row(s4, "worker.dropped_total") == 0, "S4 drops")
+        out["worst_ssf"] = check_against_truth(
+            data_of(s4, ("ssfu_", "ssfs_", SSF_INDICATOR)), ssf_truth, eng,
+            "S4 ssf")
+        ind = s4[(SSF_INDICATOR + ".count", ("error:false", "service:chip"))]
+        check(ind.value == n_ind + 1,
+              f"indicator timer count {ind.value}, spans {n_ind + 1}")
+        status = s4.get(("ssfs_check.db", ()))
+        check(status is not None and status.type == MetricType.STATUS
+              and status.value == 2.0, f"the status sample's row: {status}")
+        code, body = http_get(srv.http_api.port, "/healthz")
+        check(code == 200 and json.loads(body)["healthy"], "/healthz")
+    finally:
+        eng.ingest_histo_batch = land
+        t0 = time.monotonic()
+        srv.stop()
+        out["stop_s"] = time.monotonic() - t0
+    check(out["stop_s"] < 10.0, f"stop() took {out['stop_s']:.1f} s")
+    alive = [t.name for t in set(threading.enumerate()) - threads_before
+             if t.is_alive()]
+    check(not alive, f"threads alive after stop(): {alive}")
+    out["launches_by_step"] = launches
+    out["launches"] = {k: sum(step[k] for step in launches.values())
+                       for k in kernels.launches}
+    print(f"native launches: {json.dumps(launches)}")
+    if device.type == "cuda":
+        check(launches == NATIVE_LAUNCHES,
+              f"native launches {launches}, predicted {NATIVE_LAUNCHES}")
+    print(f"native: {json.dumps(out)}")
+    return out
+
+
+def print_native_timings(n, card):
+    """Phase 12's numbers (a)-(d), a line each, with the card."""
+    print(f"timing native UDP ingest (a): {n['datagrams']} datagrams, "
+          f"{n['lines']} lines from the first send to drain() returning in "
+          f"{n['ingest_s']:.3f} s: {n['datagrams_per_s']:.0f} datagrams/s, "
+          f"{n['lines_per_s']:.0f} lines/s (paced: bursts of "
+          f"{n['burst_bytes']} bytes, each waiting until the pump has "
+          f"landed it; SO_RCVBUF {n['rcvbuf']}) | {card}")
+    plain, prof = n["pump"]
+    dev_ms = prof["device_ms"]
+    split = (f"device busy {dev_ms:.2f} ms (the profiled drain's trace), "
+             f"the host the other {plain['wall_ms'] - dev_ms:.2f} ms"
+             if dev_ms is not None else "device and host shares not measured")
+    print(f"timing native pump drain (b): {plain['samples']} samples landed "
+          f"in batches of {n['pump_batch']} in {plain['wall_ms']:.2f} ms, "
+          f"{plain['samples_per_s']:.0f} samples/s ({split}); under the "
+          f"profiler's CUDA trace {prof['wall_ms']:.2f} ms; the rings "
+          f"filled by {NATIVE_FILL_THREADS} threads in "
+          f"{plain['fill_s']:.3f} s | {card}")
+    lnd = n["landings"]
+    full = lnd["pump_full_ms"]
+    if lnd["first"] and full:
+        print(f"timing native landings: start() with the landings' warm-up "
+              f"{n['start_s'] * 1e3:.2f} ms; the first histogram landing "
+              f"{lnd['first'][1]:.2f} ms ({lnd['first'][0]} samples); "
+              f"the pump's full landings ({n['pump_batch']} samples) "
+              f"median {statistics.median(full):.2f} ms, min "
+              f"{full[0]:.2f}, max {full[-1]:.2f} over {len(full)} | {card}")
+    print(f"timing native SSF (c): {n['ssf_spans']} spans over UDP from the "
+          f"first send to drain() returning in {n['ssf_s']:.3f} s: "
+          f"{n['ssf_spans_per_s']:.0f} spans/s, "
+          f"{n['ssf_samples_per_s']:.0f} samples/s (paced) | {card}")
+    for label in ("S1", "S2", "S3", "S4"):
+        f = n[label]
+        print(f"timing native flush {label} (d): total "
+              f"{f['total_duration_ns']:.2f} ms, swap "
+              f"{f['swap_duration_ns']:.2f} ms, merge "
+              f"{f['merge_duration_ns']:.2f} ms, assembly "
+              f"{f['assembly_duration_ns']:.2f} ms, gc in flush_once "
+              f"{f['gc_ms']:.2f} ms, {f['rows']} rows, kernel launches "
+              f"{n['launches_by_step'][label]} | {card}")
+
+
 # ------------------------------------------------------------- main
 
 # (name, source, the TPU kernel it replaces, the phase holding it
@@ -4478,6 +4971,7 @@ def main() -> int:
     glob_out = ph.run("global tier", phase_global, device)
     fleet_out = ph.run("fleet", phase_fleet, device)
     durable_out = ph.run("durable", phase_durable, device)
+    native_out = ph.run("native", phase_native, device)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}",
               file=sys.stderr)
@@ -4584,8 +5078,9 @@ def main() -> int:
     print_global_timings(glob_out, card)
     print_fleet_timings(fleet_out, card)
     print_durable_timings(durable_out, card)
+    print_native_timings(native_out, card)
     paths = [*main_out.values(), server, ssf_out, glob_out, fleet_out,
-             durable_out]
+             durable_out, native_out]
     kernels = []
     for name, source, replaces, phase, timed in KERNELS:
         t = timing[timed]

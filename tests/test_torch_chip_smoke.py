@@ -1,4 +1,4 @@
-"""chip_smoke.py's phases 4-10 rehearsed on the CPU at small shapes.
+"""chip_smoke.py's phases 4-12 rehearsed on the CPU at small shapes.
 
 On the CPU every kernel wrapper runs its plain version, so these show
 that the script's cases, checks, timings and reports run end to end and
@@ -401,3 +401,65 @@ def test_durable_launch_table_follows_the_plan():
         "hll_stats": 2 * 2 + 2 + 2 + 1 + 2, "ull_insert": 0, "probe": 6}
     assert sum(s["probe"] for s in table.values()) == \
         p["locals"] + 2 + 1 + 1 + 2 + 6 + 6
+
+
+# phase 12 at small shapes: the timers scaled with the histogram slots
+# (2000 of 4096 dirty, as 20000 of 32768), the spans kept whole (10000,
+# every tenth an indicator span: the indicator timer's 1000 samples)
+NATIVE_PLAN = {"timers": (2000, 10), "counters": (500, 4), "gauges": 500,
+               "sets": (100, 100), "checks": 100, "events": 10}
+NATIVE_CFG = {"tpu_histogram_slots": 4096, "tpu_counter_slots": 2048,
+              "tpu_gauge_slots": 2048, "tpu_set_slots": 256}
+NATIVE_SSF = {"spans": 10000, "keys": (500, 200, 20, 100), "every": 10}
+
+
+def test_phase_native_rehearsal():
+    """Phase 12 at small widths: a native-ingest Server on the CPU over
+    real UDP (the C++ readers), the pump's drains, the native SSF path;
+    rows against numpy truth in every interval, the bridge's counters,
+    and a clean stop."""
+    out = cs.phase_native(CPU, cfg_kw={**NATIVE_CFG,
+                                       "native_pump_batch": 1024},
+                          plan=NATIVE_PLAN, ssf_plan=NATIVE_SSF)
+    n_lines = 20000 + 2000 + 500 + 10000 + 100 + 10 + 1
+    assert out["lines"] == n_lines and out["bridge_S1"]["lines"] == n_lines
+    assert out["bridge_S1"]["samples"] == n_lines - 111
+    assert [r["samples"] for r in out["pump"]] == [n_lines - 111] * 2
+    assert [r["profiled"] for r in out["pump"]] == [False, True]
+    assert all(r["device_ms"] is None for r in out["pump"])  # no card
+    assert out["landings"]["pump_full_ms"]
+    assert out["bridge_ssf"]["ssf_spans"] == 10000
+    assert out["S2"]["ssf_datagrams"] > 0        # S1's self-traced spans
+    for label in ("S1", "S2", "S3", "S4"):
+        assert out[label]["total_duration_ns"] > 0
+    cs.print_native_timings(out, "cpu")
+    assert all(n == 0 for n in out["launches"].values())
+    assert set(out["launches_by_step"]) == set(cs.NATIVE_LAUNCHES)
+
+
+def test_native_launch_table_holds_on_the_cpu(monkeypatch):
+    """NATIVE_LAUNCHES at the scaled plan, counting the kernel wrappers'
+    plain calls on the CPU (and each engine's construction for the
+    probe): no landing overfills a slot but the indicator timer's, whose
+    1000 samples pass its buffer depth three times."""
+    from veneur_tpu_torch import kernels
+    from veneur_tpu_torch.kernels import compress as kc
+    from veneur_tpu_torch.kernels import hll_stats as kh
+    from veneur_tpu_torch.models import pipeline
+
+    def counting(name, fn):
+        def wrapper(*a, **kw):
+            kernels.count_launch(name)
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(kc, "fused_compress",
+                        counting("compress", kc.fused_compress))
+    monkeypatch.setattr(kh, "hll_stats", counting("hll_stats", kh.hll_stats))
+    monkeypatch.setattr(pipeline.AggregationEngine, "__init__", counting(
+        "probe", pipeline.AggregationEngine.__init__))
+    out = cs.phase_native(CPU, cfg_kw=NATIVE_CFG, plan=NATIVE_PLAN,
+                          ssf_plan=NATIVE_SSF)
+    assert out["launches_by_step"] == cs.NATIVE_LAUNCHES
+    names = {k[0] for k in cs.KERNELS}
+    assert all(set(step) == names for step in cs.NATIVE_LAUNCHES.values())

@@ -1013,7 +1013,8 @@ def test_refused_keys_lost_exactly_the_durability_rows():
     assert "history_retention_generations" not in keys
     assert not any("item 11" in item for _k, _f, item in
                    tserver.REFUSED_KEYS)
-    assert len(keys) == 16
+    # native_ingest (item 13) is served too
+    assert len(keys) == 15
 
 
 def test_durable_keys_build_the_journals(tmp_path):

@@ -94,7 +94,8 @@ SERVER_PATH = ("veneur_tpu_torch.server", "veneur_tpu_torch.http_api",
                "veneur_tpu_torch.ssf.protos.ssf_pb2",
                "veneur_tpu_torch.trace", "veneur_tpu_torch.trace.opentracing",
                "veneur_tpu_torch.cli.emit",
-               "veneur_tpu_torch.ingest.admission")
+               "veneur_tpu_torch.ingest.admission",
+               "veneur_tpu_torch.ingest.native")
 
 
 # the global tier's engine and wire: each must be among the modules
@@ -160,6 +161,43 @@ print(len(after))
 """
 
 
+# a native-ingest CPU server in a fresh interpreter: the bridge built and
+# loaded from veneur_tpu_torch/_build/, one datagram, one flush; no JAX,
+# no veneur_tpu module, and neither library of native/build/ mapped
+_NATIVE_ONLY = r"""
+import socket, sys, time
+from veneur_tpu_torch.config import Config
+from veneur_tpu_torch.ingest import native
+from veneur_tpu_torch.server import Server
+from veneur_tpu_torch.sinks.basic import CaptureMetricSink
+cap = CaptureMetricSink()
+srv = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                    native_ingest=True, tpu_histogram_slots=256,
+                    tpu_counter_slots=128, tpu_gauge_slots=128,
+                    tpu_set_slots=64, tpu_batch_size=256),
+             sinks=[cap], device="cpu")
+srv.start()
+with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+    s.sendto(b"only.c:3|c", ("127.0.0.1", srv.bound_port()))
+deadline = time.monotonic() + 30
+while srv.native_bridge.stats()["lines"] < 1 and time.monotonic() < deadline:
+    time.sleep(0.01)
+assert srv.drain()
+srv.flush_once(timestamp=1)
+assert cap.wait_for_flush(1)
+srv.stop()
+assert {m.name: m.value for m in cap.flushes[0]}["only.c"] == 3.0
+maps = open("/proc/self/maps").read()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "veneur_tpu" or m.startswith("veneur_tpu."))
+print(native.LIB_PATH)
+print(",".join(sorted({ln.split()[-1] for ln in maps.splitlines()
+                       if "libvtpu_ingest" in ln})))
+print(",".join(bad))
+"""
+
+
 def _clean_env():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -188,6 +226,18 @@ def test_statsd_only_server_imports_no_protobuf():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().split("\n")[-1] == ""
+
+
+def test_native_server_loads_the_ports_bridge_and_no_jax():
+    out = subprocess.run([sys.executable, "-c", _NATIVE_ONLY], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    lib, mapped, bad = out.stdout.split("\n")[-4:-1]
+    assert lib == os.path.join(ROOT, "veneur_tpu_torch", "_build",
+                               "libvtpu_ingest.so")
+    assert mapped == lib
+    assert bad == "", f"JAX-side modules imported: {bad}"
 
 
 def test_durability_imports_no_jax_and_protobuf_only_in_functions():

@@ -362,6 +362,12 @@ class _Stage:
 SET_LANDING_BATCHES = 16
 
 
+# the batch widths warm_ingest_kernels lands besides the pump's own: the
+# pump's batches take any width up to its own, and the device picks other
+# kernels (sorts, reductions) for short batches than for long ones
+_WARM_WIDTHS = (1, 32, 256, 1024, 4096)
+
+
 class _SetLanding:
     """Host landing buffer of set updates (slots i32, reg_idx i32, vals
     u8): batches are appended at ingest and land in the set bank together,
@@ -692,42 +698,75 @@ class AggregationEngine:
         return evs, []
 
     # ---- pre-interned batch ingest: slots come from the caller's own
-    # lookups on the engine's interners; slot -1 rows are padding.
+    # lookups on the engine's interners, or from the native bridge's
+    # interner; slot -1 rows are padding. `mark` (if given) runs under
+    # the engine lock before the landing, with the batch's slots[:count],
+    # so the caller's touched set agrees with the bank the samples land
+    # in across a concurrent flush swap. Callers must not mutate the
+    # arrays they pass: on the CPU the engine's tensors alias them.
 
-    def _ingest_batch(self, slots, count, apply):
+    def _ingest_batch(self, slots, count, mark, apply):
         with self.lock:
             n = int(count if count is not None else len(slots))
+            if mark is not None:
+                mark(slots[:n])
             self.samples_processed += n
-            apply()
+            apply(n)
 
-    def ingest_histo_batch(self, slots, values, weights, count=None):
-        def apply():
+    def ingest_histo_batch(self, slots, values, weights, count=None,
+                           mark=None):
+        def apply(n):
             self.histo_bank = self._land_histos(
                 self.histo_bank, self._dirty, slots, values, weights)
-        self._ingest_batch(slots, count, apply)
+        self._ingest_batch(slots, count, mark, apply)
 
-    def ingest_counter_batch(self, slots, values, weights, count=None):
-        def apply():
+    def ingest_counter_batch(self, slots, values, weights, count=None,
+                             mark=None):
+        def apply(n):
             self.counter_bank = self._land_counters(
                 self.counter_bank, self._dirty, slots, values, weights)
-        self._ingest_batch(slots, count, apply)
+        self._ingest_batch(slots, count, mark, apply)
 
-    def ingest_gauge_batch(self, slots, values, count=None):
+    def ingest_gauge_batch(self, slots, values, count=None, mark=None):
         # Sequence numbers are assigned here (arrival order at the
         # engine), under the same lock as the bank swap that resets them
-        def apply():
-            n = int(count if count is not None else len(slots))
+        def apply(n):
             seqs = np.arange(1, len(slots) + 1, dtype=np.int32) \
                 + self._gauge_seq
             self._gauge_seq += n
             self.gauge_bank = self._land_gauges(
                 self.gauge_bank, self._dirty, slots, values, seqs)
-        self._ingest_batch(slots, count, apply)
+        self._ingest_batch(slots, count, mark, apply)
 
-    def ingest_set_batch(self, slots, reg_idx, rho, count=None):
-        def apply():
+    def ingest_set_batch(self, slots, reg_idx, rho, count=None, mark=None):
+        def apply(n):
             self._buffer_sets(slots, reg_idx, rho)
-        self._ingest_batch(slots, count, apply)
+        self._ingest_batch(slots, count, mark, apply)
+
+    def warm_ingest_kernels(self, b: int):
+        """Run the four batch-ingest landings once at width `b` on scratch
+        banks of the live banks' sizes, so the device's first use of
+        their ops at these shapes (the lazy loading of the kernels each
+        shape picks, the allocator's first blocks) is paid here and not
+        by the first landing under the engine lock; and at the shorter
+        widths of _WARM_WIDTHS, whose ops pick other kernels. The rows are
+        real (padding alone leaves the masked ops on empty tensors, which
+        launch nothing), one a slot in turn, so no buffer overflows and
+        no compress runs; the live banks are not touched. The native
+        pump's server calls it at the pump's width before the pump
+        starts."""
+        kh, kc, kg, ks = self._bank_sizes()
+        hb, cb, gb, sb = self._fresh_banks()
+        for w in sorted({min(b, w) for w in _WARM_WIDTHS} | {b}):
+            ones = np.ones(w, np.float32)
+            idx = np.arange(w, dtype=np.int32)
+            hb = self._land_histos(hb, None, idx % kh, ones, ones)
+            cb = self._land_counters(cb, None, idx % kc, ones, ones)
+            gb = self._land_gauges(gb, None, idx % kg, ones, idx + 1)
+            sb = self._insert_sets(sb, idx % ks, idx % 64,
+                                   np.ones(w, np.uint8))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _dispatch_histos(self):
         a = self._histo_stage.drain()

@@ -41,11 +41,19 @@ The device is the caller's `device`, else "cpu" when
 `aggregation_backend: cpu`, else "cuda" — which raises where there is no
 card, as AggregationEngine does. With an SSF UDP listener the server
 traces its own flushes through it. Config keys this port cannot honour
-yet (the network sinks, native ingest, several devices, the
-relayed-backend fetch modes) are refused at construction with
-NotImplementedError naming their ROADMAP item (`REFUSED_KEYS`), never
-ignored. The forwarders, the import server and their wire (grpc,
-google.protobuf) are imported only when the config needs them.
+yet (the network sinks, several devices, the relayed-backend fetch
+modes) are refused at construction with NotImplementedError naming
+their ROADMAP item (`REFUSED_KEYS`), never ignored. The forwarders, the
+import server and their wire (grpc, google.protobuf) are imported only
+when the config needs them.
+
+With `native_ingest` the C++ bridge (ingest/native.py over
+native/vtpu_ingest.cpp) takes the Python UDP readers' place: its reader
+threads parse and intern into ONE engine's slot space, and a pump thread
+lands their batches in that engine's banks on the device. When the
+ssfmetrics sink is the only span sink the bridge also decodes SSF
+datagrams and stages their samples (the native SSF path);
+STATUS-carrying spans fall back to the Python span pipeline.
 
 With `durability_enabled` the server keeps the reference's journals in
 `durability_dir` (the port's durability/ package, the same bytes): the
@@ -87,7 +95,6 @@ _ITEM_9B2 = "item 9b.2, the network sinks"
 # (config key, refused when, ROADMAP queue A item): the keys whose value
 # this port cannot honour yet
 REFUSED_KEYS = (
-    ("native_ingest", bool, "item 13, native ingest"),
     ("tpu_num_devices", lambda v: v > 1, "item 14, multi-device engine"),
     ("tpu_flush_fetch", lambda v: v != "sync", "item 16, flush fetch modes"),
     ("tpu_flush_fetch_f16", bool, "item 16, flush fetch modes"),
@@ -123,6 +130,16 @@ def refuse_unported(cfg: Config) -> None:
         v = getattr(cfg, key)
         if refused(v):
             raise _not_ported(f"{key}={v!r}", item)
+    if cfg.native_ingest and (cfg.forward_address
+                              or cfg.consul_forward_service_name):
+        # the reference's native server raises out of every flush in this
+        # pairing: a full forward export asks its interner views for
+        # all_items(), which they lack
+        raise NotImplementedError(
+            "native_ingest with forwarding (forward_address or "
+            "consul_forward_service_name) is refused by veneur_tpu_torch: "
+            "the reference fails every flush of that pairing (ROADMAP "
+            "C.11)")
     if cfg.tpu_fused_kernels == "off":
         raise NotImplementedError(
             "tpu_fused_kernels='off' is not supported by veneur_tpu_torch: "
@@ -147,7 +164,9 @@ class Server:
             device = "cpu" if cfg.aggregation_backend == "cpu" else "cuda"
         self.hostname = cfg.hostname or (
             "" if cfg.omit_empty_hostname else socket.gethostname())
-        n_workers = max(1, cfg.num_workers)
+        # native ingest: the C++ bridge owns interning over ONE engine's
+        # slot space; its reader threads are the parallelism
+        n_workers = 1 if cfg.native_ingest else max(1, cfg.num_workers)
         ecfg_kw = dict(
             histogram_slots=max(256, cfg.tpu_histogram_slots // n_workers),
             counter_slots=max(128, cfg.tpu_counter_slots // n_workers),
@@ -188,6 +207,10 @@ class Server:
         # max here, keyed by prefix; /debug/fleet serves the estimates
         self._fleet_sketch_lock = threading.Lock()
         self._fleet_sketches: dict[str, bytearray] = {}
+        self.native_bridge = None
+        self.native_pump = None
+        if cfg.native_ingest:
+            self._setup_native_ingest()
         # per-server telemetry registry (two servers in one process never
         # cross-count); _self_metrics drains it and the process default
         self.telemetry = observe.TelemetryRegistry()
@@ -196,7 +219,11 @@ class Server:
         # handle_packet (adaptive shed); None = defense off
         self.admission = None
         self._rate_corrected_types = None
-        if cfg.overload_defense_enabled:
+        if cfg.overload_defense_enabled and self.native_bridge is not None:
+            log.warning(
+                "overload_defense_enabled has no effect with native_ingest "
+                "(the C++ bridge owns interning); defense disabled")
+        elif cfg.overload_defense_enabled:
             from .ingest import admission as _admission
             self.admission = _admission.from_config(cfg, self.telemetry)
             self._rate_corrected_types = _admission.RATE_CORRECTED_TYPES
@@ -323,8 +350,15 @@ class Server:
         self._history_baseline = None    # (recs, marks, empty) of the
         #                                  previous boundary
         self._history_prev_close_ns = 0
-        if cfg.durability_enabled and cfg.durability_engine_snapshot \
-                and (cfg.grpc_listen_addresses or cfg.is_global):
+        engine_journal = (cfg.durability_enabled
+                          and cfg.durability_engine_snapshot
+                          and (cfg.grpc_listen_addresses or cfg.is_global))
+        if engine_journal and self.native_bridge is not None:
+            log.warning(
+                "durability_engine_snapshot has no effect with "
+                "native_ingest (the native bridge owns the interner); "
+                "engine checkpointing disabled")
+        elif engine_journal:
             from .durability import EngineJournal
             self._engine_journal_armed = True
             self._recovering = True
@@ -365,6 +399,16 @@ class Server:
         self._exclude_tags = frozenset(cfg.tags_exclude) or None
         self._max_name_len = cfg.metric_max_name_length
         self._max_tag_len = cfg.metric_max_tag_length
+        if self.native_bridge is not None:
+            if (self._max_name_len != parser.MAX_NAME_LENGTH
+                    or self._max_tag_len != parser.MAX_TAG_LENGTH):
+                log.warning(
+                    "metric_max_name_length/metric_max_tag_length have no "
+                    "effect with native_ingest (the C++ bridge parses and "
+                    "interns without the bounds)")
+            if self._exclude_tags:
+                self.native_bridge.set_tags_exclude(
+                    sorted(self._exclude_tags))
         # stats_address: ship veneur.* self-metrics there as DogStatsD
         # over UDP instead of injecting them into our own flush
         self._stats_sock = None
@@ -379,6 +423,7 @@ class Server:
         # through its own ingest path
         self.trace_client = None
         self._ssf_udp_sock = None
+        self.ssf_native_port = None   # set by the native SSF listener
         # in-flight fan-out threads (flusher-thread-only): a sink whose
         # previous flush is still running skips the interval
         self._sink_inflight: dict[tuple, threading.Thread] = {}
@@ -419,6 +464,19 @@ class Server:
             maxsize=max(1, cfg.ssf_buffer_size))
         self.span_sinks = (span_sinks if span_sinks is not None
                            else self._span_sinks_from_config())
+        # the native SSF path: when the ssfmetrics bridge is the only span
+        # consumer, the C++ bridge decodes span datagrams and stages their
+        # samples in its rings; spans it cannot express (STATUS samples,
+        # which become service checks) fall back a datagram at a time
+        self._native_ssf = (self.native_bridge is not None
+                            and len(self.span_sinks) == 1
+                            and type(self.span_sinks[0]) is SSFMetricsSink)
+        if self._native_ssf:
+            # the sink's own timer name, so both paths derive the same
+            # indicator timer
+            timer_name = self.span_sinks[0]._timer_name
+            if timer_name:
+                self.native_bridge.set_indicator_timer(timer_name)
 
     # ------------- telemetry accessors (registry-backed) -------------
     # Read-only views over the registry: interval deltas, reset by each
@@ -465,6 +523,60 @@ class Server:
     def flush_count(self) -> int:
         """Completed flush ticks since start (a level: never drained)."""
         return self.telemetry.level(observe.SERVER_SCOPE, "flush.count")
+
+    def _setup_native_ingest(self):
+        """Swap the single engine's interners for views over the C++
+        interning bridge, and build the pump that lands its sample rings
+        in the engine's banks. Raises NativeUnavailable when the bridge
+        cannot be built or loaded: there is no Python-ingest fallback."""
+        from .ingest.native import BridgeKeyView, NativeBridge, NativePump
+
+        eng = self.engines[0]
+        ecfg = eng.cfg
+        self._last_bridge_stats = {}   # the stats at the last flush
+        self.native_bridge = NativeBridge(
+            histo_slots=ecfg.histogram_slots,
+            counter_slots=ecfg.counter_slots,
+            gauge_slots=ecfg.gauge_slots,
+            set_slots=ecfg.set_slots,
+            hll_precision=ecfg.hll_precision,
+            idle_ttl=ecfg.idle_ttl_intervals,
+            ring_capacity=self.cfg.native_ring_capacity,
+            max_packet=self.cfg.metric_max_length)
+        views = {b: BridgeKeyView(self.native_bridge, b)
+                 for b in ("histo", "counter", "gauge", "set")}
+        eng.histo_keys = views["histo"]
+        eng.counter_keys = views["counter"]
+        eng.gauge_keys = views["gauge"]
+        eng.set_keys = views["set"]
+
+        def slow_path(line: bytes):
+            """Lines the C++ parser routes to Python: events, service
+            checks, CPython float oddities, invalid UTF-8. The same
+            tags_exclude as the fast path, or one metric splits in two."""
+            try:
+                item = parser.parse_packet(line, self._exclude_tags,
+                                           self._max_name_len,
+                                           self._max_tag_len)
+            except parser.ParseError:
+                self._count("packet.error")
+                return
+            self._route_metric(item)
+
+        def ssf_slow_path(payload: bytes):
+            """SSF datagrams the native listener routed back (STATUS
+            samples become service checks in the Python span path)."""
+            from .ssf import framing
+            try:
+                span = framing.parse_ssf_datagram(payload)
+            except framing.FramingError:
+                self._count("ssf.error")
+                return
+            self.handle_ssf_span(span)
+
+        self.native_pump = NativePump(
+            self.native_bridge, eng, views, slow_path,
+            batch=self.cfg.native_pump_batch, ssf_slow_path=ssf_slow_path)
 
     def _sinks_from_config(self) -> list[MetricSink]:
         # the network sinks are refused above (ROADMAP item 9b.2)
@@ -516,9 +628,15 @@ class Server:
 
     def start(self):
         """Start sinks, workers, listeners, the trace client, the span
-        worker, the HTTP API, the flusher and the watchdog. No warm-up:
-        the port compiles nothing per shape, and each engine ran its
-        probe at construction."""
+        worker, the HTTP API, the native pump, the flusher and the
+        watchdog. The port compiles nothing per shape, and each engine
+        ran its probe at construction; under native ingest the engine's
+        landings first run on scratch banks at the pump's width and
+        shorter ones (warm_ingest_kernels), so the pump's first landings
+        do not pay the device's first use of their ops under the engine
+        lock."""
+        if self.native_pump is not None:
+            self.engines[0].warm_ingest_kernels(self.native_pump.batch)
         for s in self.sinks:
             try:
                 s.start()
@@ -530,10 +648,12 @@ class Server:
             self._start_statsd_listener(addr)
         for addr in self.cfg.ssf_listen_addresses:
             self._start_ssf_listener(addr)
-        if self.trace_client is None and self._ssf_udp_sock is not None:
+        trace_port = (self._ssf_udp_sock.getsockname()[1]
+                      if self._ssf_udp_sock is not None
+                      else self.ssf_native_port)
+        if self.trace_client is None and trace_port:
             from . import trace
-            self.trace_client = trace.Client(
-                f"udp://127.0.0.1:{self._ssf_udp_sock.getsockname()[1]}")
+            self.trace_client = trace.Client(f"udp://127.0.0.1:{trace_port}")
         if self.cfg.enable_profiling:
             self._start_profiling()
         for addr in self.cfg.grpc_listen_addresses:
@@ -547,6 +667,8 @@ class Server:
         self._spawn(self._span_worker, "span-worker")
         if self.cfg.http_address:
             self._start_http_api(self.cfg.http_address)
+        if self.native_pump is not None:
+            self.native_pump.start()
         self._last_flush_ok = time.monotonic()
         self._spawn(self._flush_loop, "flusher")
         # the watchdog always runs: it counts overdue ticks
@@ -601,6 +723,10 @@ class Server:
             except OSError:
                 pass
             s.close()
+        if self.native_pump is not None:
+            self.native_pump.stop()
+        if self.native_bridge is not None:
+            self.native_bridge.stop()
         for q in [self.span_queue] + self.worker_queues:
             try:
                 q.put(_STOP, timeout=max(0.0, deadline - time.monotonic()))
@@ -685,6 +811,15 @@ class Server:
         scheme, _, rest = addr.partition("://")
         if scheme in ("udp", "udp4", "udp6"):
             family, bind_addr = self._resolve_inet(scheme, rest)
+            if self.native_bridge is not None:
+                # the bridge takes numeric addresses only; resolve here
+                host = socket.getaddrinfo(
+                    bind_addr[0], bind_addr[1], family,
+                    socket.SOCK_DGRAM)[0][4][0]
+                self.native_bridge.start_udp(
+                    host, bind_addr[1], max(1, self.cfg.num_readers),
+                    rcvbuf=self.cfg.read_buffer_size_bytes)
+                return
             for ri in range(max(1, self.cfg.num_readers)):
                 sock = socket.socket(family, socket.SOCK_DGRAM)
                 sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -831,6 +966,18 @@ class Server:
         scheme, _, rest = addr.partition("://")
         if scheme in ("udp", "udp4", "udp6"):
             family, bind_addr = self._resolve_inet(scheme, rest)
+            if self._native_ssf and family != socket.AF_INET6:
+                # C++ SSF readers: recvmmsg, decode and ring staging; no
+                # Python thread owns this socket. Fallback datagrams come
+                # back through the pump's ssf_slow_path
+                self.ssf_native_port = self.native_bridge.start_ssf_udp(
+                    bind_addr[0], bind_addr[1],
+                    n_readers=max(1, self.cfg.num_readers),
+                    rcvbuf=self.cfg.read_buffer_size_bytes,
+                    max_dgram=self.cfg.trace_max_length_bytes)
+                log.info("native SSF listener on udp://%s:%d",
+                         bind_addr[0], self.ssf_native_port)
+                return
             sock = socket.socket(family, socket.SOCK_DGRAM)
             sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
             sock.bind(bind_addr)
@@ -851,6 +998,7 @@ class Server:
         from .ssf import framing
 
         max_len = self.cfg.trace_max_length_bytes
+        native_ssf = self._native_ssf
         while True:
             try:
                 data, _ = sock.recvfrom(max_len)
@@ -858,6 +1006,17 @@ class Server:
                 break
             if self._stop.is_set():
                 break
+            if native_ssf:
+                rc = self.native_bridge.handle_ssf(data)
+                if rc == 1:
+                    # staged in the rings; counted by the bridge's
+                    # ssf_spans (folded into the telemetry at flush), not
+                    # by ssf.received, which would count the span twice
+                    continue
+                if rc < 0:
+                    self._count("ssf.error")
+                    continue
+                # rc == 0: STATUS samples present, the Python path below
             try:
                 span = framing.parse_ssf_datagram(data)
             except framing.FramingError:
@@ -870,6 +1029,7 @@ class Server:
         frame poisons only its own connection."""
         from .ssf import framing
 
+        native_ssf = self._native_ssf
         try:
             with conn:
                 while not self._stop.is_set():
@@ -877,6 +1037,14 @@ class Server:
                         payload = framing.read_ssf_frame(conn)
                         if payload is None:
                             return
+                        if native_ssf:
+                            rc = self.native_bridge.handle_ssf(payload)
+                            if rc == 1:
+                                # counted by the bridge's ssf_spans
+                                continue
+                            if rc < 0:
+                                self._count("ssf.error")
+                                return
                         span = framing.parse_ssf_datagram(payload)
                     except (framing.FramingError, EOFError, OSError):
                         self._count("ssf.error")
@@ -1434,6 +1602,8 @@ class Server:
 
     def bound_port(self) -> int:
         """Port of the first UDP socket (for callers binding port 0)."""
+        if self.native_bridge is not None and not self._sockets:
+            return self.native_bridge.bound_port()
         return self._sockets[0].getsockname()[1]
 
     def _read_metric_socket(self, sock: socket.socket):
@@ -1450,6 +1620,11 @@ class Server:
             self.handle_packet(data)
 
     def handle_packet(self, data: bytes):
+        if self.native_bridge is not None:
+            # the bridge counts packets and errors itself; folded into
+            # the self-metrics at flush
+            self.native_bridge.handle_packet(data)
+            return
         # Overload backpressure (ingest/admission.py): when the governor
         # is engaged, shed WHOLE datagrams pre-parse at the adaptive
         # rate (counted as veneur.overload.shed_packets_total) and
@@ -1556,6 +1731,11 @@ class Server:
         `sleep` are injectable, so the deadline path is testable without
         real waiting."""
         deadline = clock() + timeout
+        if self.native_pump is not None:
+            # the bridge's rings and slow path first; slow-path items land
+            # on the worker queues, which the loop below then settles
+            if not self.native_pump.drain(timeout):
+                return False
         queues = [self.span_queue] + self.worker_queues
         while True:
             if all(q.unfinished_tasks == 0 for q in queues):
@@ -2187,6 +2367,8 @@ class Server:
             tel.mark(S, name, 0)
         if self.flight is not None:
             tel.mark(S, "observe.phases_dropped", 0)
+        if self.native_bridge is not None:
+            self._fold_bridge_stats(eng_stats)
         if self.admission is not None:
             # overload counters report every interval, zeros included
             # (a zero IS the steady-state signal), plus the live
@@ -2260,6 +2442,31 @@ class Server:
                 pass
             return []
         return out
+
+    def _fold_bridge_stats(self, eng_stats):
+        """UDP and native SSF are counted in the bridge under native
+        ingest: fold its per-interval deltas into the telemetry. Ring
+        drops count as worker.dropped; the bridge's bank-full drops
+        REPLACE the engine's dropped_no_slot (the views see only the
+        slow-path share, which the bridge's counter already holds).
+        Flushes are serialized, so the previous snapshot needs no lock."""
+        tel, S = self.telemetry, observe.SERVER_SCOPE
+        st = self.native_bridge.stats()
+        last = self._last_bridge_stats
+
+        def delta(k):
+            return int(st[k]) - int(last.get(k, 0))
+
+        tel.incr(S, "packet.received", delta("packets"))
+        tel.incr(S, "packet.error", delta("parse_errors"))
+        tel.incr(S, "worker.dropped", delta("ring_drops"))
+        # natively decoded spans and their decode errors (fallback
+        # datagrams re-enter the Python path and are counted there)
+        tel.incr(S, "ssf.received", delta("ssf_spans"))
+        tel.incr(S, "ssf.error", delta("ssf_errors"))
+        if eng_stats is not None:
+            eng_stats["dropped_no_slot"] = delta("drops_no_slot")
+        self._last_bridge_stats = st
 
     def _fan_out(self, frameset, events, checks, tick=None, parent=-1):
         """Per-sink parallel flush, decoupled from the tick (one thread
