@@ -88,9 +88,12 @@ the run:
                lines/s, from the first send to drain() returning) and
                S1's and S2's flush times from their
                veneur.flush.*_duration_ns rows, with the garbage
-               collector's pauses in each flush_once. Then the daemon
-               itself: `python3 -m veneur_tpu_torch.cli.veneur -f <yaml>`
-               in a subprocess on the card (interval 1 s, a UDP
+               collector's pauses in each flush_once, and each kind of
+               the worker's ingest landing, the first against the median
+               (start() warms the engine first: its own step, `start`).
+               Then the daemon itself: `python3 -m
+               veneur_tpu_torch.cli.veneur -f <yaml>` in a subprocess on
+               the card (interval 1 s, a UDP
                listener, a flush_file) takes one burst of datagrams,
                writes every counter sample to its flush file, and exits 0
                on SIGTERM.
@@ -160,7 +163,8 @@ the run:
                (Config() widths): two port globals (a gRPC import
                listener and the HTTP listener each, one worker), a port
                ProxyServer ringing both, three port locals over UDP
-               forwarding over gRPC to the proxy (chunks of 200 metrics:
+               forwarding over gRPC to the proxy (GrpcForwarder's own
+               chunks: at most 10,000 metrics and 3 MiB each, under
                grpc's 4 MiB message limit) and one forwarding over HTTP
                straight to global 1's POST /import through a scripted
                egress whose deliveries are real POSTs (seeded ack losses,
@@ -261,8 +265,34 @@ the run:
                SSF spans/s and samples/s, (d) each flush's swap, merge,
                assembly and the collector's pauses.
 
+  13. sinks    the port's Server at the deployment defaults (Config()
+               widths, one worker) with every network sink the config
+               builds, each aimed at a capture in this process: Datadog
+               metrics and traces, SignalFx, New Relic, the Splunk HEC and
+               LightStep over HTTP, X-Ray over UDP, falconer over gRPC
+               (sinks/grpsink.serve_capture), the Prometheus repeater
+               scraped after each flush, Kafka and S3 built with no client
+               library (their drops counted), and sentry_dsn; a capture
+               sink beside them. S1: phase 7's traffic over UDP and phase
+               8's 10000 spans over SSF UDP (2000 timing keys), paced so
+               nothing drops, drained and flushed; S2 empty. Checked: each
+               metric sink's decoded payload against numpy truth (phase
+               5's contract; Datadog's counters as rates over the
+               interval), the Prometheus scrape equal to render() of S1's
+               rows with the server's veneur.* self-metrics beside them,
+               the row counts equal across the sinks, every span reaching
+               every span sink, Kafka and S3 counting every row dropped,
+               the launches of each step equal SINKS_LAUNCHES (phase 7's
+               and a forwarding server's), stop() within 10 s and no
+               thread left. Then a small forwarding server aimed at a
+               closed port flushes three times: each failed forward that
+               differs from the one before reaches the sentry capture,
+               and the sink server sent none. Printed: each sink's flush
+               phase ms of S1's tick, its veneur.sink.* rows, its requests
+               and bytes, and S1's fan-out phase.
+
 Then it prints one JSON line describing every kernel (its launches are
-those of phases 5 and 7-12, the main paths), the card's name
+those of phases 5 and 7-13, the main paths), the card's name
 and power limit as nvidia-smi reports them, and, last, the device line
 {"ok": true, "device": {...}}. Without a card, or without the package
 beside it, it exits non-zero and prints no result.
@@ -1544,10 +1574,19 @@ SERVER_PLAN = {"timers": (20000, 10), "counters": (5000, 4),
 # construction; in S1's flush compress and hll_stats once for the baseline
 # rows of an empty flush (the engine's first incremental flush) and once
 # for the 20000-row work set; in S2's flush (only S1's phase timers are
-# dirty) once each; none at ingest; ull_insert never
+# dirty) once each; none at ingest; ull_insert never. `start`: the
+# engine's warmup() on scratch banks, predicted before its first run on
+# the card: its landings land one row a slot (no compress, and HLL sets
+# insert in torch), the hot-slot sidestep compresses its one-row bank
+# once, and the incremental flush of one dirty slot a bank runs compress
+# and hll_stats once for the baseline rows and once for the work set
+# (warmup() puts the cached baseline back, so S1 still computes it)
+START_LAUNCHES = {"compress": 3, "hll_stats": 2, "ull_insert": 0,
+                  "probe": 0}
 SERVER_LAUNCHES = {
     "construction": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
                      "probe": 1},
+    "start": START_LAUNCHES,
     "ingest": {"compress": 0, "hll_stats": 0, "ull_insert": 0, "probe": 0},
     "S1": {"compress": 2, "hll_stats": 2, "ull_insert": 0, "probe": 0},
     "S2": {"compress": 1, "hll_stats": 1, "ull_insert": 0, "probe": 0},
@@ -1667,13 +1706,62 @@ def free_port(kind):
         return s.getsockname()[1]
 
 
+class LandingTimes:
+    """Times each ingest landing of an engine's workers (the histogram,
+    counter and gauge stage drains, under the engine lock), each ended by
+    a synchronize, in the order they ran: the first landing of each kind
+    pays the device's first use of its ops unless start() warmed them.
+    Each landing keeps its wall ms, the worker thread's CPU ms in it (the
+    rest of the wall is waiting: for the interpreter lock, which the
+    readers' parsing holds, or for the device) and the final
+    synchronize's ms."""
+
+    KINDS = ("histos", "counters", "gauges")
+
+    def __init__(self, eng, device):
+        self.eng, self.device = eng, device
+        self.ms = {k: [] for k in self.KINDS}
+        for kind in self.KINDS:
+            fn = getattr(eng, f"_dispatch_{kind}")
+
+            def timed(fn=fn, kind=kind):
+                t0, c0 = time.perf_counter(), time.thread_time()
+                fn()
+                t1 = time.perf_counter()
+                sync(device)
+                t2 = time.perf_counter()
+                self.ms[kind].append(((t2 - t0) * 1e3,
+                                      (time.thread_time() - c0) * 1e3,
+                                      (t2 - t1) * 1e3))
+            setattr(eng, f"_dispatch_{kind}", timed)
+
+    def restore(self):
+        for kind in self.KINDS:
+            delattr(self.eng, f"_dispatch_{kind}")
+
+    def summary(self):
+        out = {}
+        for k, v in self.ms.items():
+            if v:
+                wall, cpu, tail = zip(*v)
+                out[k] = {"n": len(v), "first_ms": wall[0],
+                          "median_ms": statistics.median(wall),
+                          "first_cpu_ms": cpu[0],
+                          "median_cpu_ms": statistics.median(cpu),
+                          "first_sync_ms": tail[0],
+                          "median_sync_ms": statistics.median(tail),
+                          "first3_ms": list(wall[:3])}
+        return out
+
+
 def phase_server(device, cfg_kw=None, plan=None):
     """The port's Server at the deployment defaults on `device`: S1 over
     real UDP (paced), drained and flushed, then an empty S2; rows against
     numpy truth, the packet counters, the status rows and events, the
     HTTP routes, the launches against SERVER_LAUNCHES (on the card), and
-    a clean stop. `cfg_kw` and `plan` override the widths and the traffic
-    (CPU rehearsals at small shapes)."""
+    a clean stop; each worker's landings timed (LandingTimes), the first
+    against the median. `cfg_kw` and `plan` override the widths and the
+    traffic (CPU rehearsals at small shapes)."""
     from veneur_tpu_torch import kernels
     from veneur_tpu_torch.config import Config
     from veneur_tpu_torch.metrics import MetricType
@@ -1700,8 +1788,11 @@ def phase_server(device, cfg_kw=None, plan=None):
     srv = counted("construction",
                   lambda: Server(cfg, sinks=[cap], device=device))
     out = {"datagrams": len(dgrams), "lines": len(lines)}
+    timers = [LandingTimes(eng, device) for eng in srv.engines]
     try:
-        srv.start()
+        t0 = time.perf_counter()
+        counted("start", srv.start)
+        out["start_s"] = time.perf_counter() - t0
 
         def ingest():
             t0 = time.perf_counter()
@@ -1710,6 +1801,7 @@ def phase_server(device, cfg_kw=None, plan=None):
             return time.perf_counter() - t0
 
         secs = counted("ingest", ingest)
+        out["landings"] = [t.summary() for t in timers]
         out["ingest_s"] = secs
         out["datagrams_per_s"] = len(dgrams) / secs
         out["lines_per_s"] = len(lines) / secs
@@ -1773,6 +1865,8 @@ def phase_server(device, cfg_kw=None, plan=None):
         out["tick1_phases"] = sorted(names)
         out["health"] = health["status"]
     finally:
+        for t in timers:
+            t.restore()
         t0 = time.monotonic()
         srv.stop()
         out["stop_s"] = time.monotonic() - t0
@@ -1783,6 +1877,7 @@ def phase_server(device, cfg_kw=None, plan=None):
     out["launches"] = {k: sum(step[k] for step in launches.values())
                        for k in kernels.launches}
     print(f"server launches: {json.dumps(launches)}")
+    print(f"server landings: {json.dumps(out['landings'])}")
     if device.type == "cuda":
         check(launches == SERVER_LAUNCHES,
               f"server launches {launches}, predicted {SERVER_LAUNCHES}")
@@ -1892,10 +1987,12 @@ SSF_PLAN = {"udp_spans": 10000, "udp_keys": (5000, 2000, 200, 1000),
 # compress; the third, partial batch lands at T1's flush without one.
 # In T1's flush compress and hll_stats twice (the empty flush's baseline
 # rows, computed at the first incremental flush, and the work set); in
-# T2's once each (T1's phase timers); ull_insert never
+# T2's once each (T1's phase timers); ull_insert never. `start`: the
+# engine's warmup(), as phase 7's (START_LAUNCHES)
 SSF_LAUNCHES = {
     "construction": {"compress": 0, "hll_stats": 0, "ull_insert": 0,
                      "probe": 1},
+    "start": START_LAUNCHES,
     "ingest": {"compress": 2, "hll_stats": 0, "ull_insert": 0, "probe": 0},
     "T1": {"compress": 2, "hll_stats": 2, "ull_insert": 0, "probe": 0},
     "T2": {"compress": 1, "hll_stats": 1, "ull_insert": 0, "probe": 0},
@@ -2071,7 +2168,7 @@ def phase_ssf_overload(device, cfg_kw=None, plan=None):
                   lambda: Server(cfg, sinks=[cap], device=device))
     threads_before = set(threading.enumerate())
     try:
-        srv.start()
+        counted("start", srv.start)
         check(srv.trace_client is not None, "no self-tracing client")
         ssf_port = srv._ssf_udp_sock.getsockname()[1]
         tcp_port = srv._listen_socks[0].getsockname()[1]
@@ -2888,10 +2985,6 @@ FLEET_GRPC_LOCALS = 3
 # a partial delivery whose tail (chunk 1 again, and chunk 2) replays in
 # interval 3 under its original ids, where the global drops chunk 1.
 FLEET_RETRY_ATTEMPTS = 8
-# gRPC chunks: grpc's default 4 MiB receive limit holds 200 metrics of
-# 16 KiB HLL rows (GrpcForwarder chunks by metric count, 10,000 by
-# default)
-FLEET_GRPC_BATCH = 200
 
 
 def fleet_schedules():
@@ -3180,8 +3273,6 @@ def phase_fleet(device, cfg_kw=None, plan=None):
                           forward_use_grpc=False,
                           flush_max_per_body=http_body_bound(plan), **base),
                    sinks=[CaptureMetricSink()], device=device)])
-        for loc in loc_srvs[:FLEET_GRPC_LOCALS]:
-            loc.forwarder.inner.max_per_batch = FLEET_GRPC_BATCH
         # the HTTP local's egress: the scripted schedule of the interval,
         # its deliveries real POSTs, its backoff on an injected clock
         clock = FakeClock()
@@ -3416,8 +3507,7 @@ def phase_fleet(device, cfg_kw=None, plan=None):
         _s2, port2 = proxy2.start("127.0.0.1:0")
         for j in range(FLEET_GRPC_LOCALS):
             rfs.append(ResilientForwarder(GrpcForwarder(
-                f"127.0.0.1:{port2}", max_per_batch=FLEET_GRPC_BATCH,
-                engine_stamp=loc_srvs[j].engine_stamp),
+                f"127.0.0.1:{port2}", engine_stamp=loc_srvs[j].engine_stamp),
                 destination=f"rerun-{j}"))
         rfs.append(ResilientForwarder(HttpJsonForwarder(
             f"http://127.0.0.1:{globs2[0].http_api.port}",
@@ -3546,7 +3636,9 @@ def _launch_row(compress=0, hll_stats=0, ull_insert=0, probe=0):
 # 80004 digests, 9 landings at import; both engines flush the same
 # remainder. Step 2 an interval: 2 x 20001 = 40002 digests, 4 landings
 # at import. The restarted daemon (its own process: read from its
-# /debug/flush) lands interval 2 again in its recovery, then flushes.
+# /debug/flush) lands interval 2 again in its recovery, warms its engine
+# in start() (START_LAUNCHES: three compresses, two hll_stats), then
+# flushes.
 # Step 3: 20001 + 20001 digests, 2 landings each, in both globals; the
 # replayed interval is dropped whole. Step 4, each server: the first
 # query restores both generations into scratch engines (the twin
@@ -3568,8 +3660,8 @@ DURABLE_LAUNCHES = {
     "twin flush 1": _launch_row(compress=4, hll_stats=2),
     "twin interval 2": _launch_row(compress=8),
     "twin flush 2": _launch_row(compress=3, hll_stats=1),
-    "daemon restart to first flush": _launch_row(compress=12,
-                                                 hll_stats=2, probe=1),
+    "daemon restart to first flush": _launch_row(compress=15,
+                                                 hll_stats=4, probe=1),
     "sender kill construction": _launch_row(probe=2),
     "sender kill forwards": _launch_row(compress=16),
     "sender kill flush": _launch_row(compress=8, hll_stats=4),
@@ -4436,9 +4528,12 @@ NATIVE_FILL_THREADS = 4
 # (under 256 of them a batch, so no sidestep): its buffer overflows as
 # the total passes 256, 512 and 768, one whole-bank compress each; the
 # fallback span's sample (the 1001st) rides the Python path. S4: the
-# work set once
+# work set once. `start`: the engine's warmup(), as phase 7's
+# (START_LAUNCHES), then the landings at the pump's width, one row a slot
+# (none)
 NATIVE_LAUNCHES = {
     "construction": _launch_row(probe=1),
+    "start": START_LAUNCHES,
     "ingest": _launch_row(),
     "S1": _launch_row(compress=2, hll_stats=2),
     "S2": _launch_row(compress=1, hll_stats=1),
@@ -4645,7 +4740,7 @@ def phase_native(device, cfg_kw=None, plan=None, ssf_plan=None):
     threads_before = set(threading.enumerate())
     try:
         t0 = time.perf_counter()
-        srv.start()    # the landings' warm-up at the pump's width first
+        counted("start", srv.start)   # the engine's warm-up first
         out["start_s"] = time.perf_counter() - t0
         check(srv.trace_client is not None, "no self-tracing client")
         st0 = bridge.stats()
@@ -4852,7 +4947,7 @@ def print_native_timings(n, card):
     lnd = n["landings"]
     full = lnd["pump_full_ms"]
     if lnd["first"] and full:
-        print(f"timing native landings: start() with the landings' warm-up "
+        print(f"timing native landings: start() with the engine's warm-up "
               f"{n['start_s'] * 1e3:.2f} ms; the first histogram landing "
               f"{lnd['first'][1]:.2f} ms ({lnd['first'][0]} samples); "
               f"the pump's full landings ({n['pump_batch']} samples) "
@@ -4871,6 +4966,559 @@ def print_native_timings(n, card):
               f"{f['assembly_duration_ns']:.2f} ms, gc in flush_once "
               f"{f['gc_ms']:.2f} ms, {f['rows']} rows, kernel launches "
               f"{n['launches_by_step'][label]} | {card}")
+
+
+# ------------------------------------------------------------- phase 13
+
+# phase 8's UDP spans for the span sinks: 10000 spans, each with a
+# timing, a count, a set member and a gauge; the timing keys cut from
+# 5000 to 2000 so S1's dirty histogram rows (phase 7's 20000 timers and
+# these 2000) stay under the incremental threshold (0.75 of 32768) as
+# phase 7's S1 does. No indicator timer is configured here.
+SINKS_SSF_PLAN = {"spans": 10000, "keys": (2000, 2000, 200, 1000),
+                  "every": 10}
+# spans a burst between waits for the falconer sink's sender queue to
+# empty (it holds 8192 and sends one RPC a span)
+SINKS_SPAN_BURST = 2000
+# the forwarding server behind the sentry capture of a failed forward:
+# small widths on the card, one global-only counter an interval
+SINKS_FORWARD_CFG = {"tpu_histogram_slots": 1024, "tpu_counter_slots": 256,
+                     "tpu_gauge_slots": 256, "tpu_set_slots": 64,
+                     "tpu_batch_size": 1024}
+SINKS_FORWARD_TICKS = 3
+SINKS_INTERVAL_S = 3600
+
+# phase 13's launches, predicted from the code before its first run
+# (PERF.md section 6): the sink server's steps are phase 7's
+# (SERVER_LAUNCHES: a network sink launches nothing, and the spans'
+# samples keep S1 incremental); the forwarding server's construction the
+# probe, its start the warm-up, its first flush the baseline rows and
+# the work set (the counter), each later flush the work set (the
+# counter and the previous tick's phase timers)
+SINKS_LAUNCHES = {
+    **SERVER_LAUNCHES,
+    "forward construction": _launch_row(probe=1),
+    "forward start": START_LAUNCHES,
+    "forward flushes": _launch_row(compress=SINKS_FORWARD_TICKS + 1,
+                                   hll_stats=SINKS_FORWARD_TICKS + 1),
+}
+
+
+class HttpCapture:
+    """A loopback HTTP endpoint recording every POST and PUT as (path,
+    headers, wire bytes, body): the body deflated when the request says
+    so. It answers 200 with an empty JSON object."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        import zlib
+        self.requests = []
+        self._lock = threading.Lock()
+        cap = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def _handle(self):
+                n = int(self.headers.get("Content-Length", 0))
+                wire = self.rfile.read(n)
+                body = wire
+                if self.headers.get("Content-Encoding") == "deflate":
+                    body = zlib.decompress(wire)
+                with cap._lock:
+                    cap.requests.append((self.path, dict(self.headers),
+                                         len(wire), body))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            do_POST = do_PUT = _handle
+
+            def log_message(self, *a):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="chip-capture", daemon=True)
+        self.thread.start()
+
+    @property
+    def url(self):
+        return f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def take(self):
+        with self._lock:
+            out, self.requests = self.requests, []
+        return out
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class UdpCapture:
+    """A UDP socket drained by a thread into a list of datagrams."""
+
+    def __init__(self):
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.2)
+        self.port = self.sock.getsockname()[1]
+        self.datagrams = []
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._run,
+                                       name="chip-udp-capture", daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                self.datagrams.append(self.sock.recv(65536))
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+
+    def close(self):
+        self._stop.set()
+        self.thread.join(5)
+        self.sock.close()
+
+
+def _pseudo(rows):
+    """{(name, tags): value} as the rows check_against_truth reads."""
+    ms = [types.SimpleNamespace(name=n, tags=list(t), value=v)
+          for (n, t), v in rows.items()]
+    return types.SimpleNamespace(metrics=ms, frame=ms)
+
+
+def _datadog_rows(reqs):
+    """The series and service checks of the Datadog metric sink's
+    bodies: {(metric, tags): value} without veneur.* rows, with the
+    counters' rate values; the series count and the check count."""
+    rows, n_series, n_checks = {}, 0, 0
+    for path, _h, _n, body in reqs:
+        if path.startswith("/api/v1/series"):
+            for s in json.loads(body)["series"]:
+                n_series += 1
+                if not s["metric"].startswith("veneur."):
+                    key = (s["metric"], tuple(s["tags"]))
+                    check(key not in rows, f"datadog: {key} twice")
+                    rows[key] = (s["type"], s["points"][0][1])
+        elif path.startswith("/api/v1/check_run"):
+            n_checks += 1
+    return rows, n_series, n_checks
+
+
+def _tags_of(d, skip):
+    return tuple(f"{k}:{v}" for k, v in d.items() if k != skip)
+
+
+def _signalfx_rows(reqs):
+    rows, n = {}, 0
+    for _p, _h, _n, body in reqs:
+        for kind, dps in json.loads(body).items():
+            for dp in dps:
+                n += 1
+                if not dp["metric"].startswith("veneur."):
+                    rows[(dp["metric"], _tags_of(dp["dimensions"],
+                                                 "host"))] = dp["value"]
+    return rows, n
+
+
+def _newrelic_rows(reqs):
+    rows, n = {}, 0
+    for path, _h, _n, body in reqs:
+        if path != "/metric/v1":
+            continue
+        for block in json.loads(body):
+            for m in block["metrics"]:
+                n += 1
+                if not m["name"].startswith("veneur."):
+                    rows[(m["name"], _tags_of(m["attributes"],
+                                              "hostname"))] = m["value"]
+    return rows, n
+
+
+def _span_ids(names_ids):
+    return sorted(i for svc, i in names_ids if svc == "chip")
+
+
+def _phase_ms(tick, kind, name):
+    """ms of the fan-out phase `kind` (sink.flush, plugin.flush,
+    spansink.flush) of the sink or plugin `name` in a tick's tree."""
+    key = "plugin" if kind == "plugin.flush" else "sink"
+    for p in tick["phases"]:
+        if p["name"] == kind and p.get("meta", {}).get(key) == name:
+            return (p["end_ns"] - p["start_ns"]) / 1e6
+    raise AssertionError(f"tick {tick['tick_id']} has no {kind} of {name}")
+
+
+def phase_sinks(device, cfg_kw=None, plan=None, ssf_plan=None,
+                fwd_cfg_kw=None):
+    """The port's Server on `device` with every network sink the config
+    builds, each aimed at a capture endpoint in this process: phase 7's
+    S1 over UDP and phase 8's spans over SSF UDP, drained and flushed,
+    then an empty S2; every metric sink's payload against numpy truth
+    (the Prometheus scrape against the capture sink's rows, Kafka and S3
+    counting their drops: no client library), the row counts across the
+    sinks, every span sink holding the spans, the launches of each step
+    against SINKS_LAUNCHES (on the card), a clean stop; then a small
+    forwarding server aimed at a closed port, whose failed forwards reach
+    the sentry capture once per distinct error. `cfg_kw`, `plan`,
+    `ssf_plan` and `fwd_cfg_kw` override the widths and the traffic (CPU
+    rehearsals at small shapes)."""
+    from veneur_tpu_torch import kernels
+    from veneur_tpu_torch.cli.prometheus import parse_exposition
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.metrics import MetricType
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.basic import CaptureMetricSink
+    from veneur_tpu_torch.sinks.grpsink import serve_capture
+    from veneur_tpu_torch.sinks.prometheus import render
+    plan = plan or SERVER_PLAN
+    ssf_plan = ssf_plan or SINKS_SSF_PLAN
+    rng = np.random.default_rng(29)
+    lines, truth, checks, titles = server_traffic(rng, plan)
+    spans = ssf_spans(rng, ssf_plan["spans"], ssf_plan["keys"], "sinks",
+                      ssf_plan["every"], time.time_ns(), truth)
+    truth.histo = {k: v for k, v in truth.histo.items()
+                   if k[0] != SSF_INDICATOR}
+    span_dgrams = [s.SerializeToString() for s in spans]
+    http = {name: HttpCapture() for name in (
+        "datadog", "datadog-traces", "signalfx", "newrelic", "splunk",
+        "lightstep", "sentry")}
+    xray = UdpCapture()
+    grpc_server, grpc_port, falconer = serve_capture()
+    prom_port = free_port(socket.SOCK_STREAM)
+    sentry_port = http["sentry"].server.server_address[1]
+    out = {"datagrams": 0, "lines": len(lines), "spans": len(spans)}
+    launches = {}
+
+    def counted(label, fn):
+        before = dict(kernels.launches)
+        res = fn()
+        launches[label] = {k: n - before[k]
+                           for k, n in kernels.launches.items()}
+        return res
+
+    srv = fwd = None
+    threads_before = set(threading.enumerate())
+    try:
+        cfg = Config(
+            statsd_listen_addresses=["udp://127.0.0.1:0"],
+            ssf_listen_addresses=["udp://127.0.0.1:0"],
+            http_address=f"127.0.0.1:{free_port(socket.SOCK_STREAM)}",
+            interval=f"{SINKS_INTERVAL_S}s", hostname="chip",
+            datadog_api_key="chip-key",
+            datadog_api_hostname=http["datadog"].url,
+            datadog_trace_api_address=http["datadog-traces"].url,
+            signalfx_api_key="chip-token",
+            signalfx_endpoint_base=http["signalfx"].url,
+            newrelic_insert_key="chip-insert", newrelic_account_id=42,
+            splunk_hec_address=http["splunk"].url,
+            splunk_hec_token="chip-hec",
+            lightstep_access_token="chip-ls",
+            lightstep_collector_host=http["lightstep"].url,
+            xray_address=f"127.0.0.1:{xray.port}",
+            falconer_address=f"127.0.0.1:{grpc_port}",
+            kafka_broker="127.0.0.1:9", kafka_metric_topic="chip-metrics",
+            kafka_span_topic="chip-spans", aws_s3_bucket="chip-bucket",
+            prometheus_repeater_address=f"127.0.0.1:{prom_port}",
+            sentry_dsn=f"http://chip@127.0.0.1:{sentry_port}/1",
+            **(cfg_kw or {}))
+        dgrams = pack_datagrams(lines, cfg.metric_max_length)
+        out["datagrams"] = len(dgrams)
+        kernels.reset_launches()
+        srv = counted("construction", lambda: Server(cfg, device=device))
+        sinks = {s.name(): s for s in srv.sinks}
+        span_sinks = {s.name(): s for s in srv.span_sinks}
+        check(list(sinks) == ["datadog", "signalfx", "kafka", "newrelic",
+                              "prometheus"], f"metric sinks {list(sinks)}")
+        check(list(span_sinks) == ["ssfmetrics", "datadog", "splunk",
+                                   "xray", "grpsink", "kafka", "lightstep"],
+              f"span sinks {list(span_sinks)}")
+        check([p.name() for p in srv.plugins] == ["s3"],
+              f"plugins {[p.name() for p in srv.plugins]}")
+        check(srv._sentry is not None, "no sentry client")
+        # the New Relic sink's endpoints are not config keys
+        nr = sinks["newrelic"]
+        nr.metric_url = http["newrelic"].url + "/metric/v1"
+        nr.event_url = http["newrelic"].url + "/v1/accounts/42/events"
+        cap = CaptureMetricSink()
+        srv.sinks.append(cap)
+        t0 = time.perf_counter()
+        counted("start", srv.start)
+        out["start_s"] = time.perf_counter() - t0
+        grpsink = span_sinks["grpsink"]
+        ssf_port = srv._ssf_udp_sock.getsockname()[1]
+
+        def ingest():
+            t0 = time.perf_counter()
+            out.update(send_paced(srv, dgrams))
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+                for i in range(0, len(span_dgrams), SINKS_SPAN_BURST):
+                    send_spans_paced(
+                        srv, span_dgrams[i:i + SINKS_SPAN_BURST],
+                        lambda d: sock.sendto(d, ("127.0.0.1", ssf_port)),
+                        "UDP")
+                    wait_until(lambda: grpsink._q.qsize() == 0, 120,
+                               "the falconer sink's queue")
+            check(srv.drain(timeout=120), "drain() timed out")
+            return time.perf_counter() - t0
+
+        out["ingest_s"] = counted("ingest", ingest)
+        flushes = []
+        for n, label in ((1, "S1"), (2, "S2")):
+            check(srv.drain(timeout=120), "drain() timed out")
+            with GcPauses() as gcp:
+                fs = counted(label,
+                             lambda n=n: srv.flush_once(timestamp=5000 + n))
+            check(cap.wait_for_flush(n, timeout=120),
+                  f"{label}: the capture sink got no flush")
+            for t in list(srv._sink_inflight.values()):
+                t.join(300)
+            rows = {(m.name, tuple(m.tags)): m for m in cap.flushes[n - 1]}
+            _ctype, scrape = http_get(prom_port, "/metrics")
+            flushes.append({"rows": rows, "frames": len(fs),
+                            "scrape": scrape.decode(),
+                            "http": {k: c.take() for k, c in http.items()
+                                     if k != "sentry"},
+                            "gc_ms": gcp.ms})
+            out[label] = {
+                k.split(".")[-1]: rows[(f"veneur.flush.{k}", ())].value / 1e6
+                for k in ("total_duration_ns", "swap_duration_ns",
+                          "merge_duration_ns", "assembly_duration_ns")}
+            out[label]["rows"] = len(rows)
+            out[label]["gc_ms"] = gcp.ms
+        s1, s2 = flushes
+        rows = s1["rows"]
+        check(rows[("veneur.packet.received_total", ())].value
+              == len(dgrams), "S1: statsd datagrams lost")
+        check(rows[("veneur.ssf.received_total", ())].value == len(spans),
+              "S1: spans lost")
+        check(rows[("veneur.worker.dropped_total", ())].value == 0,
+              "S1: a worker queue dropped")
+        # the capture sink against numpy truth, as phase 7 holds it
+        data = {k: m.value for k, m in rows.items()
+                if not k[0].startswith("veneur.")
+                and m.type != MetricType.STATUS}
+        eng = srv.engines[0]
+        out["worst"] = check_against_truth(_pseudo(data), truth, eng,
+                                           "S1 capture")
+        n_rows, n_status = len(rows), len(checks)
+        n_plain = n_rows - n_status
+        # Datadog: counters as rates over the interval, every other row
+        # a gauge; the status rows as service checks
+        dd, n_series, n_checks = _datadog_rows(s1["http"]["datadog"])
+        check((n_series, n_checks) == (n_plain, n_status),
+              f"datadog: {n_series} series and {n_checks} checks, "
+              f"expected {n_plain} and {n_status}")
+        # every row the capture sink held to the truth, each counter-typed
+        # row (counters, timer counts) a rate: its value over the interval
+        check(set(dd) == set(data), "datadog: the row keys differ")
+        for key, (kind, v) in dd.items():
+            m = rows[key]
+            rate = m.type == MetricType.COUNTER
+            check(kind == ("rate" if rate else "gauge")
+                  and v == (m.value / SINKS_INTERVAL_S if rate else m.value),
+                  f"datadog {key}: {kind} {v}, S1's row {m.value}")
+        sfx, n_sfx = _signalfx_rows(s1["http"]["signalfx"])
+        check(n_sfx == n_plain, f"signalfx: {n_sfx} datapoints")
+        out["worst_signalfx"] = check_against_truth(_pseudo(sfx), truth,
+                                                    eng, "S1 signalfx")
+        nrr, n_nr = _newrelic_rows(s1["http"]["newrelic"])
+        check(n_nr == n_plain, f"newrelic: {n_nr} metrics")
+        out["worst_newrelic"] = check_against_truth(_pseudo(nrr), truth,
+                                                    eng, "S1 newrelic")
+        nr_events = [r for r in s1["http"]["newrelic"]
+                     if r[0] != "/metric/v1"]
+        check(len(nr_events) == 1 and len(json.loads(nr_events[0][3]))
+              == len(titles), "newrelic: the events")
+        # Prometheus: the scrape's flush body is render() of S1's rows,
+        # and the registries carry the server's veneur.* self-metrics
+        want = {(n, tuple(sorted(lab.items()))): v for n, lab, v, _t in
+                parse_exposition(render(
+                    [m for m in rows.values()
+                     if m.type != MetricType.STATUS], {}))}
+        got = {(n, tuple(sorted(lab.items()))): v for n, lab, v, _t in
+               parse_exposition(s1["scrape"])}
+        check(all(got.get(k) == v for k, v in want.items()),
+              f"prometheus: {sum(got.get(k) != v for k, v in want.items())}"
+              f" of {len(want)} series differ from S1's rows")
+        check(len(want) == n_plain, f"prometheus: {len(want)} series")
+        own = {n for n, _l in got if n.startswith("veneur_")}
+        check({"veneur_packet_received_total",
+               "veneur_flush_total_duration_ns"} <= own
+              and any(n.startswith("veneur_sink_") for n in own),
+              f"prometheus: self-metrics {sorted(own)[:8]}")
+        out["prometheus_series"] = len(got)
+        # Kafka and S3 without their client library: every row dropped
+        # and counted
+        check(sinks["kafka"].dropped_total == s1["frames"] + s2["frames"],
+              f"kafka: {sinks['kafka'].dropped_total} dropped")
+        s3 = srv.plugins[0]
+        check(s3.dropped_total == s1["frames"] + s2["frames"]
+              and s3.uploaded_total == 0, f"s3: {s3.dropped_total} dropped")
+        check(s1["frames"] == n_rows, f"S1 frameset {s1['frames']} rows")
+        # the span sinks: every span of the chip service
+        ids = list(range(1, len(spans) + 1))
+        traces = [d for _p, _h, _n, body in s1["http"]["datadog-traces"]
+                  for t in json.loads(body) for d in t]
+        check(_span_ids((d["service"], d["span_id"]) for d in traces)
+              == ids, "datadog traces: spans missing")
+        ev = [json.loads(ln) for _p, _h, _n, body in s1["http"]["splunk"]
+              for ln in body.decode().split("\n")]
+        check(_span_ids((e["event"]["service"], int(e["event"]["id"], 16))
+                        for e in ev) == ids, "splunk: spans missing")
+        recs = [r for _p, _h, _n, body in s1["http"]["lightstep"]
+                for r in json.loads(body)["span_records"]]
+        check(_span_ids((r["attributes"][0]["Value"], int(r["span_guid"], 16))
+                        for r in recs) == ids, "lightstep: spans missing")
+        segs = [json.loads(d.split(b"\n", 1)[1]) for d in xray.datagrams]
+        check(_span_ids((s["name"], int(s["id"], 16)) for s in segs) == ids,
+              f"xray: {len(segs)} segments")
+        check(_span_ids((s.service, s.id) for s in falconer) == ids,
+              f"falconer: {len(falconer)} spans")
+        check(span_sinks["kafka"].dropped_total >= len(spans),
+              "kafka spans: not counted as dropped")
+        check(grpsink.dropped_total == 0, "falconer: spans dropped")
+        # per sink: the flush phase of S1's tick, the sink's own
+        # veneur.sink.* rows in S2, and the bytes it put on the wire
+        tick1 = [t for t in srv.flight.debug_state()["ticks"]
+                 if t["tick_id"] == 1][0]
+        r2 = s2["rows"]
+        wire = {"datadog": s1["http"]["datadog"],
+                "signalfx": s1["http"]["signalfx"],
+                "newrelic": s1["http"]["newrelic"]}
+        per_sink = {}
+        for name in ("datadog", "signalfx", "newrelic", "prometheus",
+                     "kafka", "capture"):
+            tag = (f"sink:{name}",)
+            reqs = wire.get(name, [])
+            per_sink[name] = {
+                "phase_ms": _phase_ms(tick1, "sink.flush", name),
+                "flush_duration_ms": r2[("veneur.sink.flush_duration_ns",
+                                         tag)].value / 1e6,
+                "metrics_flushed": r2[("veneur.sink.metrics_flushed_total",
+                                       tag)].value,
+                "requests": len(reqs),
+                "wire_bytes": sum(n for _p, _h, n, _b in reqs),
+                "body_bytes": sum(len(b) for _p, _h, _n, b in reqs)}
+        per_sink["prometheus"]["body_bytes"] = len(s1["scrape"])
+        per_sink["s3"] = {"phase_ms": _phase_ms(tick1, "plugin.flush", "s3"),
+                          "dropped": s3.dropped_total}
+        span_wire = {"datadog": s1["http"]["datadog-traces"],
+                     "splunk": s1["http"]["splunk"],
+                     "lightstep": s1["http"]["lightstep"]}
+        for name in ("datadog", "splunk", "lightstep", "xray", "grpsink",
+                     "kafka"):
+            reqs = span_wire.get(name, [])
+            per_sink["span " + name] = {
+                "phase_ms": _phase_ms(tick1, "spansink.flush", name),
+                "requests": len(reqs),
+                "wire_bytes": sum(n for _p, _h, n, _b in reqs)}
+        per_sink["span xray"]["wire_bytes"] = sum(
+            len(d) for d in xray.datagrams)
+        out["sinks"] = per_sink
+        out["fanout_ms"] = tick_phase_ms(srv, 1, "fanout")
+        check(all(k[0].startswith("veneur.") for k in r2),
+              "S2 carried rows other than veneur.*")
+        check(per_sink["datadog"]["metrics_flushed"] == n_rows,
+              "veneur.sink.metrics_flushed_total of datadog")
+        # the forwarding server: each failed forward that differs from
+        # the previous one reaches sentry
+        fcfg = Config(statsd_listen_addresses=[], interval="3600s",
+                      hostname="chip-fwd",
+                      forward_address=f"127.0.0.1:{free_port(socket.SOCK_STREAM)}",
+                      retry_max_attempts=1,
+                      sentry_dsn=f"http://chip@127.0.0.1:{sentry_port}/2",
+                      **(fwd_cfg_kw or SINKS_FORWARD_CFG))
+        fwd = counted("forward construction", lambda: Server(
+            fcfg, sinks=[CaptureMetricSink()], device=device))
+        counted("forward start", fwd.start)
+
+        def forward_flushes():
+            for t in range(SINKS_FORWARD_TICKS):
+                fwd.handle_packet(b"fwd.c:1|c|#veneurglobalonly")
+                check(fwd.drain(timeout=60), "forward drain() timed out")
+                fwd.flush_once(timestamp=6000 + t)
+        counted("forward flushes", forward_flushes)
+        wait_until(lambda: any(p.startswith("/api/2/")
+                               for p, *_r in http["sentry"].requests), 30,
+                   "the forward failure's sentry event")
+        time.sleep(0.5)
+        events = [(p, json.loads(b)) for p, _h, _n, b
+                  in http["sentry"].take()]
+        check(all(p == "/api/2/store/" for p, _e in events),
+              f"sentry events from the sink server: "
+              f"{[e['message'] for p, e in events if p != '/api/2/store/']}")
+        values = [e["exception"]["values"][0]["value"] for _p, e in events]
+        check(all(e["message"] == "forward failed" for _p, e in events)
+              and 1 <= len(events) <= SINKS_FORWARD_TICKS
+              and all(a != b for a, b in zip(values, values[1:])),
+              f"sentry: {len(events)} events for {SINKS_FORWARD_TICKS} "
+              f"failed forwards")
+        out["sentry_events"] = len(events)
+        out["sentry_distinct"] = len(set(values))
+    finally:
+        stops = {}
+        for name, s in (("sinks", srv), ("forward", fwd)):
+            if s is not None:
+                t0 = time.monotonic()
+                s.stop()
+                stops[name] = time.monotonic() - t0
+        out["stop_s"] = stops
+        for c in http.values():
+            c.close()
+        xray.close()
+        grpc_server.stop(None).wait(10)
+    check(all(v < 10.0 for v in stops.values()), f"stop() took {stops}")
+    # the falconer capture's own RPC pool is not the server's
+    alive = [t.name for t in set(threading.enumerate()) - threads_before
+             if t.is_alive() and not t.name.startswith("ThreadPoolExecutor")]
+    check(not alive, f"threads alive after stop(): {alive}")
+    out["launches_by_step"] = launches
+    out["launches"] = {k: sum(step[k] for step in launches.values())
+                       for k in kernels.launches}
+    print(f"sinks launches: {json.dumps(launches)}")
+    if device.type == "cuda":
+        check(launches == SINKS_LAUNCHES,
+              f"sinks launches {launches}, predicted {SINKS_LAUNCHES}")
+    print(f"sinks: {json.dumps(out)}")
+    return out
+
+
+def print_sinks_timings(s, card):
+    """Phase 13's numbers, a line each, with the card."""
+    for label in ("S1", "S2"):
+        f = s[label]
+        print(f"timing sinks flush {label}: total "
+              f"{f['total_duration_ns']:.2f} ms, swap "
+              f"{f['swap_duration_ns']:.2f} ms, merge "
+              f"{f['merge_duration_ns']:.2f} ms, assembly "
+              f"{f['assembly_duration_ns']:.2f} ms, gc in flush_once "
+              f"{f['gc_ms']:.2f} ms, {f['rows']} rows, kernel launches "
+              f"{s['launches_by_step'][label]} | {card}")
+    print(f"timing sinks S1 fan-out phase: {s['fanout_ms']:.2f} ms "
+          f"| {card}")
+    for name, r in s["sinks"].items():
+        parts = [f"flush phase {r['phase_ms']:.2f} ms"]
+        if "flush_duration_ms" in r:
+            parts.append(f"veneur.sink.flush_duration_ns "
+                         f"{r['flush_duration_ms']:.2f} ms, "
+                         f"{r['metrics_flushed']:.0f} rows flushed")
+        if "wire_bytes" in r:
+            parts.append(f"{r['requests']} requests, {r['wire_bytes']} "
+                         f"bytes on the wire")
+        if r.get("body_bytes"):
+            parts.append(f"{r['body_bytes']} bytes decoded")
+        if "dropped" in r:
+            parts.append(f"{r['dropped']} rows dropped (no client)")
+        print(f"timing sinks {name}: {', '.join(parts)} | {card}")
+    print(f"sinks: sentry got {s['sentry_events']} forward-failure events "
+          f"({s['sentry_distinct']} distinct) for {SINKS_FORWARD_TICKS} "
+          f"failed forwards; stop {json.dumps(s['stop_s'])} | {card}")
 
 
 # ------------------------------------------------------------- main
@@ -4972,6 +5620,7 @@ def main() -> int:
     fleet_out = ph.run("fleet", phase_fleet, device)
     durable_out = ph.run("durable", phase_durable, device)
     native_out = ph.run("native", phase_native, device)
+    sinks_out = ph.run("sinks", phase_sinks, device)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}",
               file=sys.stderr)
@@ -5079,8 +5728,9 @@ def main() -> int:
     print_fleet_timings(fleet_out, card)
     print_durable_timings(durable_out, card)
     print_native_timings(native_out, card)
+    print_sinks_timings(sinks_out, card)
     paths = [*main_out.values(), server, ssf_out, glob_out, fleet_out,
-             durable_out, native_out]
+             durable_out, native_out, sinks_out]
     kernels = []
     for name, source, replaces, phase, timed in KERNELS:
         t = timing[timed]

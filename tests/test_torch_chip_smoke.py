@@ -144,11 +144,13 @@ def test_phase_ssf_overload_rehearsal():
 
 def test_ssf_launch_table_is_whole():
     """Every step of phase 8's table names every kernel, as phase 7's
-    does, and the kernels line's launches sum phases 5, 7 and 8."""
+    does, each with the engine's warm-up in start() as its own step, and
+    the kernels line's launches sum phases 5, 7 and 8."""
     names = {k[0] for k in cs.KERNELS}
     for table in (cs.SERVER_LAUNCHES, cs.SSF_LAUNCHES):
-        assert list(table)[:2] == ["construction", "ingest"]
-        assert len(table) == 4
+        assert list(table)[:3] == ["construction", "start", "ingest"]
+        assert len(table) == 5
+        assert table["start"] == cs.START_LAUNCHES
         assert all(set(step) == names for step in table.values())
     assert sum(s["probe"] for s in cs.SSF_LAUNCHES.values()) == 1
     assert sum(s["ull_insert"] for s in cs.SSF_LAUNCHES.values()) == 0
@@ -363,8 +365,9 @@ def test_durable_launch_table_follows_the_plan():
     PERF.md derives them: a probe an engine; three compresses and two
     hll_stats a local; two compresses a landing; a global's first flush
     the remainder's landing, the baseline and the work set (compress 4,
-    hll_stats 2), a later one without the baseline; the queries' scratch
-    and merge engines."""
+    hll_stats 2), a later one without the baseline; the restarted
+    daemon's warm-up in start(); the queries' scratch and merge
+    engines."""
     from veneur_tpu_torch.models import pipeline
     names = {k[0] for k in cs.KERNELS}
     table = cs.DURABLE_LAUNCHES
@@ -385,8 +388,10 @@ def test_durable_launch_table_follows_the_plan():
     assert table["twin flush 1"] == first
     assert table["twin flush 2"] == {**first, "compress": 3,
                                      "hll_stats": 1}
+    warm = cs.START_LAUNCHES
     assert table["daemon restart to first flush"] == {
-        **first, "compress": 2 * (2 * d // stage) + 4, "probe": 1}
+        **first, "compress": 2 * (2 * d // stage) + 4 + warm["compress"],
+        "hll_stats": first["hll_stats"] + warm["hll_stats"], "probe": 1}
     rem = d % stage
     kill = 2 * (d // stage) + 2 * ((rem + d) // stage)
     assert table["sender kill forwards"]["compress"] == 2 * kill
@@ -437,6 +442,50 @@ def test_phase_native_rehearsal():
     assert set(out["launches_by_step"]) == set(cs.NATIVE_LAUNCHES)
 
 
+def _count_plain_calls(monkeypatch):
+    """Count the kernel wrappers' plain calls on the CPU as launches (and
+    each engine's construction as the probe's)."""
+    from veneur_tpu_torch import kernels
+    from veneur_tpu_torch.kernels import compress as kc
+    from veneur_tpu_torch.kernels import hll_stats as kh
+    from veneur_tpu_torch.models import pipeline
+
+    def counting(name, fn):
+        def wrapper(*a, **kw):
+            kernels.count_launch(name)
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(kc, "fused_compress",
+                        counting("compress", kc.fused_compress))
+    monkeypatch.setattr(kh, "hll_stats", counting("hll_stats", kh.hll_stats))
+    monkeypatch.setattr(pipeline.AggregationEngine, "__init__", counting(
+        "probe", pipeline.AggregationEngine.__init__))
+
+
+@pytest.mark.parametrize("kw", [
+    {"batch_size": 8192},
+    {"batch_size": 512, "buffer_depth": 64, "histogram_slots": 64}])
+def test_start_launch_table_holds_on_the_cpu(monkeypatch, kw):
+    """START_LAUNCHES: an engine's warmup() at the default widths and
+    batch, and at a batch past its few slots' buffers, counting the
+    wrappers' plain calls; the engine's live state and its cached
+    baseline rows stay as they were."""
+    from veneur_tpu_torch import kernels
+    from veneur_tpu_torch.models import pipeline
+    _count_plain_calls(monkeypatch)
+    cfg = {"histogram_slots": 2048, "counter_slots": 1024,
+           "gauge_slots": 1024, "set_slots": 256, **kw}
+    eng = pipeline.AggregationEngine(pipeline.EngineConfig(**cfg),
+                                     device=CPU)
+    kernels.reset_launches()
+    eng.warmup()
+    assert dict(kernels.launches) == cs.START_LAUNCHES
+    assert eng._flush_baseline is None
+    assert eng._last_flush_info == {"path": "full"}
+    assert not any(d.any() for d in eng._dirty)
+
+
 def test_native_launch_table_holds_on_the_cpu(monkeypatch):
     """NATIVE_LAUNCHES at the scaled plan, counting the kernel wrappers'
     plain calls on the CPU (and each engine's construction for the
@@ -463,3 +512,45 @@ def test_native_launch_table_holds_on_the_cpu(monkeypatch):
     assert out["launches_by_step"] == cs.NATIVE_LAUNCHES
     names = {k[0] for k in cs.KERNELS}
     assert all(set(step) == names for step in cs.NATIVE_LAUNCHES.values())
+
+
+# phase 13 at small shapes: phase 7's rehearsal traffic, 1000 spans whose
+# timing keys keep S1's dirty histogram rows under the incremental
+# threshold (300 + 50 of 1024, as 22000 of 32768)
+SINKS_PLAN = {"timers": (300, 10), "counters": (100, 4), "gauges": 100,
+              "sets": (20, 100), "checks": 10, "events": 3}
+SINKS_CFG = {"tpu_histogram_slots": 1024, "tpu_counter_slots": 512,
+             "tpu_gauge_slots": 256, "tpu_set_slots": 64,
+             "tpu_batch_size": 256}
+SINKS_SSF = {"spans": 1000, "keys": (50, 50, 10, 20), "every": 10}
+SINKS_FWD = {"tpu_histogram_slots": 256, "tpu_counter_slots": 128,
+             "tpu_gauge_slots": 128, "tpu_set_slots": 64,
+             "tpu_batch_size": 256}
+
+
+def test_phase_sinks_rehearsal(monkeypatch):
+    """Phase 13 at small widths on the CPU: every network sink the config
+    builds, aimed at captures in this process; each metric sink's payload
+    against numpy truth, every span at every span sink, Kafka and S3
+    counting their drops, the failed forwards at the sentry capture, a
+    clean stop, and the launches of each step (the wrappers' plain calls
+    counted) equal SINKS_LAUNCHES."""
+    _count_plain_calls(monkeypatch)
+    out = cs.phase_sinks(CPU, cfg_kw=SINKS_CFG, plan=SINKS_PLAN,
+                         ssf_plan=SINKS_SSF, fwd_cfg_kw=SINKS_FWD)
+    assert out["launches_by_step"] == cs.SINKS_LAUNCHES
+    assert out["lines"] == 3000 + 400 + 100 + 2000 + 10 + 3 + 1
+    assert out["spans"] == 1000
+    s = out["sinks"]
+    assert s["datadog"]["requests"] == 1 + 10 + 3    # series, checks, events
+    assert s["datadog"]["wire_bytes"] < s["datadog"]["body_bytes"]
+    assert s["signalfx"]["requests"] == 1
+    assert s["newrelic"]["requests"] == 2            # metrics + events
+    assert s["span xray"]["wire_bytes"] > 0
+    rows = out["S1"]["rows"]
+    assert s["kafka"]["metrics_flushed"] == rows     # the server's count
+    assert s["s3"]["dropped"] == rows + out["S2"]["rows"]
+    assert 1 <= out["sentry_events"] <= cs.SINKS_FORWARD_TICKS
+    assert out["fanout_ms"] > 0
+    assert all(v < 10 for v in out["stop_s"].values())
+    cs.print_sinks_timings(out, "cpu")

@@ -1013,8 +1013,9 @@ def test_refused_keys_lost_exactly_the_durability_rows():
     assert "history_retention_generations" not in keys
     assert not any("item 11" in item for _k, _f, item in
                    tserver.REFUSED_KEYS)
-    # native_ingest (item 13) is served too
-    assert len(keys) == 15
+    # native_ingest (item 13) and the network sinks (item 9b.2) are
+    # served too: only items 14 and 16 are left
+    assert len(keys) == 3
 
 
 def test_durable_keys_build_the_journals(tmp_path):

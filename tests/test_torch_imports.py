@@ -7,7 +7,10 @@ forward exports into metricpb bytes, import google.protobuf at module
 level: every other module imports it, and grpc, inside the functions
 that handle a span, forward or import (the engine imports the wire
 inside `import_list`, the forwarders, import server and proxy inside
-their calls), so importing them all pulls in no yaml, protobuf or grpc,
+their calls, the falconer span sink in start()), and the Kafka and S3
+clients are looked up only when a sink without an injected producer or
+uploader starts, so importing them all pulls in no yaml, protobuf, grpc,
+kafka or boto3,
 and a DogStatsD-only server — its HTTP listener with the dedupe ledger
 included — that starts, takes a datagram and flushes imports neither
 protobuf nor grpc. The HTTP API no longer carries the "not ported"
@@ -35,8 +38,9 @@ for name in names:
         importlib.import_module(name)
 import chip_smoke
 absent = sorted(m for m in sys.modules
-                if m in ("yaml", "grpc") or m.startswith(
-                    ("yaml.", "grpc.", "google.protobuf")))
+                if m in ("yaml", "grpc", "kafka", "boto3") or m.startswith(
+                    ("yaml.", "grpc.", "google.protobuf", "kafka.",
+                     "boto3.", "botocore")))
 from veneur_tpu_torch.ssf.protos import ssf_pb2
 assert ssf_pb2.SSFSpan(name="x").name == "x"
 from veneur_tpu_torch.cluster import wire
@@ -115,6 +119,21 @@ NETWORK_PATH = ("veneur_tpu_torch.resilience",
                 "veneur_tpu_torch.cluster.importsrv",
                 "veneur_tpu_torch.cluster.proxy",
                 "veneur_tpu_torch.cli.proxy")
+
+
+# the network sinks, the S3 plugin, the sentry client and the
+# Prometheus repeater: each must be among the modules imported above
+SINK_PATH = ("veneur_tpu_torch.sinks.datadog",
+             "veneur_tpu_torch.sinks.signalfx",
+             "veneur_tpu_torch.sinks.kafka",
+             "veneur_tpu_torch.sinks.newrelic",
+             "veneur_tpu_torch.sinks.splunk",
+             "veneur_tpu_torch.sinks.lightstep",
+             "veneur_tpu_torch.sinks.xray", "veneur_tpu_torch.sinks.s3",
+             "veneur_tpu_torch.sinks.grpsink",
+             "veneur_tpu_torch.sinks.prometheus",
+             "veneur_tpu_torch.utils.sentry",
+             "veneur_tpu_torch.cli.prometheus")
 
 
 # durability and /query: each must be among the modules imported above
@@ -216,8 +235,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert set(GLOBAL_PATH) <= set(names)
     assert set(NETWORK_PATH) <= set(names)
     assert set(DURABILITY_PATH) <= set(names)
+    assert set(SINK_PATH) <= set(names)
     assert bad == "", f"JAX-side modules imported: {bad}"
-    assert absent == "", f"yaml/protobuf/grpc imported: {absent}"
+    assert absent == "", f"yaml/protobuf/grpc/kafka/boto3 imported: {absent}"
 
 
 def test_statsd_only_server_imports_no_protobuf():

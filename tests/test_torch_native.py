@@ -846,4 +846,6 @@ def test_native_server_warms_the_landings_at_the_pump_width(monkeypatch):
                      device="cpu")
         srv.start()
         srv.stop()
-    assert widths == [512]
+    # every engine's warm-up lands at its batch width (8192); the native
+    # server's engine also at the pump's
+    assert widths == [8192, 512, 8192]

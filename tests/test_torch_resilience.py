@@ -690,9 +690,9 @@ tpu_buffer_depth: 128
         return Server(cfg, sinks=[sink], plugins=[], device="cpu"), sink
 
     def test_flush_timeout_plumbed_to_sinks_and_forwarder(self):
-        """flush_timeout and the retry knobs reach the config-built
-        forwarder instead of its hardcoded defaults (the config-built
-        sinks that also take them are ROADMAP item 9b.2)."""
+        """flush_timeout and the retry knobs reach every config-built
+        sink, span sink, the S3 plugin and the forwarder instead of
+        their hardcoded defaults."""
         from veneur_tpu_torch.config import read_config
         from veneur_tpu_torch.resilience import ResilientForwarder
         from veneur_tpu_torch.server import Server
@@ -702,6 +702,14 @@ interval: "1s"
 statsd_listen_addresses: []
 flush_timeout: "3s"
 retry_max_attempts: 7
+datadog_api_key: k
+signalfx_api_key: k
+newrelic_insert_key: k
+datadog_trace_api_address: "http://127.0.0.1:1"
+splunk_hec_address: "http://127.0.0.1:1"
+lightstep_access_token: tok
+falconer_address: "127.0.0.1:1"
+aws_s3_bucket: bkt
 forward_address: "http://127.0.0.1:1"
 forward_use_grpc: false
 tpu_histogram_slots: 256
@@ -709,13 +717,27 @@ tpu_counter_slots: 256
 tpu_gauge_slots: 256
 tpu_set_slots: 128
 """)
-        srv = Server(cfg, device="cpu")   # forwarder built from config
+        srv = Server(cfg, device="cpu")   # sinks, plugins and forwarder
         try:
+            timeouts = {s.name(): s.timeout_s for s in srv.sinks
+                        if hasattr(s, "timeout_s")}
+            assert timeouts == {"datadog": 3.0, "signalfx": 3.0,
+                                "newrelic": 3.0}
+            span_timeouts = {s.name(): s.timeout_s
+                             for s in srv.span_sinks
+                             if hasattr(s, "timeout_s")}
+            assert span_timeouts == {"datadog": 3.0, "splunk": 3.0,
+                                     "grpsink": 3.0, "lightstep": 3.0}
             assert isinstance(srv.forwarder, ResilientForwarder)
             assert srv.forwarder.inner.timeout_s == 3.0
-            # the retry knob reached the forwarder's egress policy
-            assert srv.forwarder.inner._egress.policy.retry \
-                .max_attempts == 7
+            # the retry knob reached the forwarder's, every network
+            # sink's and the S3 plugin's egress policy
+            egresses = [srv.forwarder.inner._egress] + [
+                s._egress for s in (*srv.sinks, *srv.span_sinks,
+                                    *srv.plugins)
+                if hasattr(s, "_egress")]
+            assert len(egresses) == 9
+            assert all(e.policy.retry.max_attempts == 7 for e in egresses)
         finally:
             srv.stop()
 

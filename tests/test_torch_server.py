@@ -380,32 +380,194 @@ def test_refused_config_keys(key, value, item):
     assert key in str(e.value) and "ROADMAP" in str(e.value)
 
 
-def test_network_sink_keys_name_item_9b2():
+def test_refused_keys_name_only_items_14_and_16():
     refused = {k: item for k, _, item in REFUSED_KEYS}
-    network = ("datadog_api_key", "datadog_trace_api_address",
-               "signalfx_api_key", "kafka_broker", "newrelic_insert_key",
-               "prometheus_repeater_address", "aws_s3_bucket",
-               "splunk_hec_address", "lightstep_access_token",
-               "xray_address", "falconer_address", "sentry_dsn")
-    assert all(refused[k].startswith("item 9b.2") for k in network)
-    assert not {"ssf_listen_addresses", "overload_defense_enabled",
-                "enable_profiling", "debug_flush_profile"} & set(refused)
+    assert set(refused) == {"tpu_num_devices", "tpu_flush_fetch",
+                            "tpu_flush_fetch_f16"}
+    assert all(item.startswith(("item 14", "item 16"))
+               for item in refused.values())
+    assert not (set(_NETWORK_KEYS) | {
+        "ssf_listen_addresses", "overload_defense_enabled",
+        "enable_profiling", "debug_flush_profile"}) & set(refused)
+
+
+# the network sinks' keys (ROADMAP item 9b.2), each with the keys it
+# needs beside it: each builds the sink, span sink, plugin or sentry
+# client the reference's Server builds for it
+_NETWORK_KEYS = {
+    "datadog_api_key": {},
+    "datadog_trace_api_address": {},
+    "signalfx_api_key": {"signalfx_vary_key_by": "team"},
+    "kafka_broker": {"kafka_metric_topic": "m", "kafka_span_topic": "s"},
+    "newrelic_insert_key": {"newrelic_account_id": 42},
+    "prometheus_repeater_address": {},
+    "aws_s3_bucket": {"aws_region": "eu-west-1"},
+    "splunk_hec_address": {"splunk_hec_token": "tok"},
+    "lightstep_access_token": {},
+    "xray_address": {},
+    "falconer_address": {},
+    "sentry_dsn": {},
+}
+_NETWORK_VALUES = {
+    "datadog_trace_api_address": "http://127.0.0.1:1",
+    "kafka_broker": "broker:9092",
+    "prometheus_repeater_address": "127.0.0.1:0",
+    "aws_s3_bucket": "bkt",
+    "splunk_hec_address": "http://127.0.0.1:1",
+    "xray_address": "127.0.0.1:2000",
+    "falconer_address": "127.0.0.1:1",
+    "sentry_dsn": "http://key@127.0.0.1:1/42",
+}
+
+
+def _built(objs):
+    return [(type(o).__name__, o.name(), getattr(o, "timeout_s", None))
+            for o in objs]
+
+
+def _references_builds(srv):
+    """The metric and span sinks the reference's Server builds from the
+    port server's config: its own _sinks_from_config and
+    _span_sinks_from_config, run over the port server's attributes."""
+    import types
+
+    from veneur_tpu import resilience as jres
+    ns = types.SimpleNamespace(
+        cfg=srv.cfg, hostname=srv.hostname, telemetry=srv.telemetry,
+        _egress_policy=jres.policy_from_config(srv.cfg),
+        _route_metric=srv._route_metric)
+    return (JServer._sinks_from_config(ns),
+            JServer._span_sinks_from_config(ns))
 
 
 @pytest.mark.parametrize("key,value", [
     ("ssf_listen_addresses", ["udp://127.0.0.1:0"]),
     ("overload_defense_enabled", True),
     ("enable_profiling", True),
-    ("debug_flush_profile", True)])
+    ("debug_flush_profile", True)] + [
+        (k, _NETWORK_VALUES.get(k, "k")) for k in _NETWORK_KEYS])
 def test_ported_keys_are_accepted(key, value):
-    srv = Server(_small(**{key: value}))
+    srv = Server(_small(flush_timeout="3s", **{key: value},
+                        **_NETWORK_KEYS.get(key, {})))
     if key == "overload_defense_enabled":
         assert srv.admission is not None
         assert all(k.admission is srv.admission
                    for eng in srv.engines
                    for k in (eng.histo_keys, eng.counter_keys,
                              eng.gauge_keys, eng.set_keys))
-    assert [s.name() for s in srv.span_sinks] == ["ssfmetrics"]
+    if key not in _NETWORK_KEYS:
+        assert [s.name() for s in srv.span_sinks] == ["ssfmetrics"]
+        return
+    from veneur_tpu.sinks.s3 import S3Plugin as JS3Plugin
+    from veneur_tpu.utils.sentry import SentryClient as JSentryClient
+    sinks, span_sinks = _references_builds(srv)
+    try:
+        assert _built(srv.sinks) == _built(sinks)
+        assert _built(srv.span_sinks) == _built(span_sinks)
+        # what the key built beside the defaults: the blackhole metric
+        # sink, the ssfmetrics bridge, no plugin and no sentry client
+        new = (_built(srv.sinks) != [("BlackholeMetricSink", "blackhole",
+                                      None)]
+               or len(srv.span_sinks) > 1)
+        if key == "aws_s3_bucket":
+            s3, = srv.plugins
+            assert type(s3).__name__ == JS3Plugin.__name__
+            assert (s3.bucket, s3.region, s3.interval_s) == (
+                "bkt", "eu-west-1", 10)
+            assert s3.uploader is None     # no boto3: drops are counted
+        elif key == "sentry_dsn":
+            assert type(srv._sentry).__name__ == JSentryClient.__name__
+            ref = JSentryClient(value)
+            assert (srv._sentry.endpoint, srv._sentry.auth) == (
+                ref.endpoint, ref.auth)
+        else:
+            assert new and srv.plugins == [] and srv._sentry is None
+    finally:
+        for s in span_sinks + srv.span_sinks:
+            if type(s).__name__ == "XRaySpanSink":
+                s.stop()
+
+
+def _engine_state(eng):
+    """Everything of an engine that ingest and flush read: the live
+    banks (cloned), the dirty bitmaps, the interners' keys, the staged
+    and buffered samples, the cached baseline rows and the last flush's
+    path."""
+    eng.drain_all()
+    banks = [tuple(t.clone() for t in bank) for bank in (
+        eng.histo_bank, eng.counter_bank, eng.gauge_bank, eng.set_bank)]
+    keys = [ki.snapshot_entries()
+            for ki in (eng.histo_keys, eng.counter_keys, eng.gauge_keys,
+                       eng.set_keys)]
+    dirty = [d.copy() for d in eng._dirty]
+    return (banks, keys, dirty, eng.samples_processed,
+            eng._set_landing.n, eng._flush_baseline,
+            dict(eng._last_flush_info))
+
+
+def _same_state(a, b):
+    banks_a, *rest_a = a
+    banks_b, *rest_b = b
+    for ba, bb in zip(banks_a, banks_b):
+        assert all(torch.equal(x, y) for x, y in zip(ba, bb))
+    keys_a, dirty_a, *tail_a = rest_a
+    keys_b, dirty_b, *tail_b = rest_b
+    assert keys_a == keys_b
+    assert all((x == y).all() for x, y in zip(dirty_a, dirty_b))
+    assert tail_a == tail_b
+
+
+def test_start_warms_every_engine_before_any_listener(monkeypatch):
+    """start() runs warmup() on each engine before a sink starts or a
+    listener binds (the reference's order), and the warm-up leaves the
+    live banks, the dirty bitmaps, the interners and the cached flush
+    state as they were: the rows landed before start() flush unchanged,
+    and the first flush still builds its baseline rows."""
+    order = []
+    real_warmup = tpipe.AggregationEngine.warmup
+
+    def warmup(eng):
+        order.append(("warmup", id(eng)))
+        real_warmup(eng)
+    monkeypatch.setattr(tpipe.AggregationEngine, "warmup", warmup)
+    cap = CaptureMetricSink()
+    real_cap_start = cap.start
+    cap.start = lambda: (order.append(("sink", None)), real_cap_start())
+    srv = Server(_small(num_workers=2, interval="3600s",
+                        statsd_listen_addresses=["udp://127.0.0.1:0"],
+                        ssf_listen_addresses=["udp://127.0.0.1:0"]),
+                 sinks=[cap])
+    for name in ("_start_statsd_listener", "_start_ssf_listener"):
+        real = getattr(srv, name)
+        setattr(srv, name, lambda addr, real=real, name=name: (
+            order.append((name, None)), real(addr)))
+    # land rows in every bank before start(): the warm-up must keep them
+    for line in (b"w.t:1.5|ms|#a:b", b"w.c:3|c", b"w.g:7|g", b"w.s:x|s",
+                 b"w.t:2.5|ms|#a:b"):
+        srv.engines[0].process(tparser.parse_packet(line))
+    srv.engines[1].process(tparser.parse_packet(b"w.c1:4|c"))
+    before = [_engine_state(e) for e in srv.engines]
+    srv.start()
+    try:
+        kinds = [k for k, _ in order]
+        assert kinds[:2] == ["warmup", "warmup"]
+        assert {e for k, e in order[:2]} == {id(e) for e in srv.engines}
+        assert kinds[2:] == ["sink", "_start_statsd_listener",
+                             "_start_ssf_listener"]
+        for eng, b in zip(srv.engines, before):
+            _same_state(_engine_state(eng), b)
+            assert eng._flush_baseline is None
+        srv.flush_once(timestamp=1)
+        assert cap.wait_for_flush(1)
+        rows = {(m.name, tuple(m.tags)): m.value for m in cap.flushes[0]}
+        assert rows[("w.t.count", ("a:b",))] == 2.0
+        assert rows[("w.t.max", ("a:b",))] == 2.5
+        assert rows[("w.c", ())] == 3.0 and rows[("w.g", ())] == 7.0
+        assert rows[("w.s", ())] == pytest.approx(1.0, rel=1e-3)
+        assert rows[("w.c1", ())] == 4.0
+        assert any(e._flush_baseline is not None for e in srv.engines)
+    finally:
+        srv.stop()
 
 
 class FakeClock:

@@ -64,6 +64,35 @@ def _is_delta_gap(exc: BaseException) -> bool:
     return False
 
 
+# grpc's default receive limit (4 MiB) and the share of it a forward
+# chunk may fill: the rest is headroom for the envelope, the engine stamp
+# and the first chunk's prefix sketches. A p=14 HLL row is 16 KiB, so a
+# count limit alone lets a few hundred sets overrun the receiver.
+GRPC_RECEIVE_LIMIT = 4 << 20
+MAX_CHUNK_BYTES = 3 << 20
+
+
+def _chunk_bounds(metrics, max_n: int, max_bytes: int) -> list:
+    """[(start, end)] of the chunks a metric list ships in: each holds at
+    most `max_n` metrics and, unless one metric alone is larger, at most
+    `max_bytes` of encoded metrics (each element's payload plus its tag
+    and length prefix). Greedy from the front, so the chunks of a tail
+    that starts at a chunk boundary are the original's own: a replayed
+    PartialDeliveryError tail resends the same chunks under the same
+    chunk ids."""
+    bounds, start, size = [], 0, 0
+    for i, m in enumerate(metrics):
+        n = m.ByteSize()
+        n += 1 + max(1, (n.bit_length() + 6) // 7)
+        if i > start and (i - start >= max_n or size + n > max_bytes):
+            bounds.append((start, i))
+            start, size = i, 0
+        size += n
+    if start < len(metrics):
+        bounds.append((start, len(metrics)))
+    return bounds
+
+
 def _count_forward_bytes(egress: Egress, nbytes: int, kind: str):
     """Per-destination bytes-on-the-wire accounting: one
     total plus a per-kind split, counted on successful delivery only
@@ -88,6 +117,8 @@ class GrpcForwarder:
                  centroid_codec: str = "lossless"):
         self.address = address
         self.timeout_s = timeout_s
+        # a chunk closes at whichever limit it reaches first: this metric
+        # count, or MAX_CHUNK_BYTES of encoded metrics
         self.max_per_batch = max_per_batch
         # sketch-engine/wire-format stamp declared on every chunk
         # (mixed-fleet safety); None = legacy (unstamped).
@@ -123,16 +154,16 @@ class GrpcForwarder:
         metrics = wire.export_to_metrics(export,
                                          codec=self.centroid_codec)
         deadline = self._egress.deadline()
-        n_chunks = -(-len(metrics) // self.max_per_batch)
+        bounds = _chunk_bounds(metrics, self.max_per_batch,
+                               MAX_CHUNK_BYTES)
+        n_chunks = len(bounds)
         total = 0
         kind = envelope.kind if envelope is not None else "full"
         if envelope is not None:
             total = envelope.chunk_count or (envelope.chunk_offset
                                              + n_chunks)
-        for j in range(n_chunks):
-            i = j * self.max_per_batch
-            batch = forward_pb2.MetricList(
-                metrics=metrics[i:i + self.max_per_batch])
+        for j, (i, end) in enumerate(bounds):
+            batch = forward_pb2.MetricList(metrics=metrics[i:end])
             if self.engine_stamp:
                 batch.sketch_engines = self.engine_stamp
             if j == 0 and export.prefix_sketches:
@@ -200,10 +231,9 @@ class GrpcForwarder:
                 self._egress, batch.ByteSize(),
                 "delta" if envelope.forward_kind == 1 else "full")
             return
-        for j, i in enumerate(range(0, len(metrics),
-                                    self.max_per_batch)):
-            batch = forward_pb2.MetricList(
-                metrics=metrics[i:i + self.max_per_batch])
+        for j, (i, end) in enumerate(_chunk_bounds(
+                metrics, self.max_per_batch, MAX_CHUNK_BYTES)):
+            batch = forward_pb2.MetricList(metrics=metrics[i:end])
             if sketch_engines:
                 batch.sketch_engines = sketch_engines
             if j == 0 and prefix_sketches:

@@ -304,7 +304,9 @@ class ForwardHandler:
         `submit_batch([(digest, pb), ...])`) routes one request's
         metrics as a unit — the reference's durable path, which
         write-aheads the batch to the engine journal before any worker
-        queue sees it (ROADMAP item 11; the port's Server passes None).
+        queue sees it (ROADMAP item 11; the port's Server passes its
+        `_submit_import_batch` when the engine journal is armed, None
+        otherwise).
 
         `engine_stamp` (the server's sketch-engine/wire stamp):
         requests whose declared stamp — or implied legacy

@@ -768,6 +768,45 @@ class AggregationEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def warmup(self):
+        """Run every device path of serving once on scratch banks, so the
+        device's first use of their ops (the lazy loading of the kernels
+        each op and shape picks, the allocator's first blocks) is paid
+        here and not by the first landing under the engine lock or by
+        the first flush: the ingest landings at `batch_size` and the
+        shorter widths (warm_ingest_kernels); the hot-slot sidestep on a
+        one-row histogram bank, its one slot over its buffer depth (the
+        compress, merge_centroids and merge_scalars); and the flush body
+        over fresh banks, through _flush_device with one dirty slot a
+        bank when the incremental flush is on (the baseline rows and a
+        one-row work set), over every row when it is off. The sidestep
+        and the flush run the same ops, and on the card the same kernels,
+        on a few rows as on the whole bank, which the plain versions on
+        the CPU would pay for by the row. The live banks, the dirty
+        bitmaps, the interners and the counters are not touched; the
+        cached baseline rows and the last flush's path are put back as
+        they were. The counterpart of the JAX package's
+        AggregationEngine.warmup, which compiles the same programs."""
+        self.warm_ingest_kernels(self.cfg.batch_size)
+        baseline, info = self._flush_baseline, self._last_flush_info
+        hb = self._heng.init(1, self.device)
+        B = hb.buf_size
+        w = max(self.cfg.batch_size, B + 1)
+        slots = np.full(w, -1, np.int32)
+        slots[:B + 1] = 0
+        values = np.zeros(w, np.float32)
+        values[:B + 1] = np.arange(1, B + 2)
+        self._land_histos(hb, None, slots, values, np.ones(w, np.float32))
+        del hb
+        dirty = None
+        if self._use_incremental:
+            dirty = [np.zeros(n, bool) for n in self._bank_sizes()]
+            for d in dirty:
+                d[0] = True
+        self._flush_device(self._fresh_banks(), [], dirty=dirty)
+        self._flush_baseline, self._last_flush_info = baseline, info
+        self._sync()
+
     def _dispatch_histos(self):
         a = self._histo_stage.drain()
         self.histo_bank = self._land_histos(

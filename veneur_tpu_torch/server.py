@@ -41,11 +41,13 @@ The device is the caller's `device`, else "cpu" when
 `aggregation_backend: cpu`, else "cuda" — which raises where there is no
 card, as AggregationEngine does. With an SSF UDP listener the server
 traces its own flushes through it. Config keys this port cannot honour
-yet (the network sinks, several devices, the relayed-backend fetch
-modes) are refused at construction with NotImplementedError naming
-their ROADMAP item (`REFUSED_KEYS`), never ignored. The forwarders, the
-import server and their wire (grpc, google.protobuf) are imported only
-when the config needs them.
+yet (several devices, the relayed-backend fetch modes) are refused at
+construction with NotImplementedError naming their ROADMAP item
+(`REFUSED_KEYS`), never ignored. The network sinks (Datadog, SignalFx,
+Kafka, New Relic, Prometheus, the span sinks), the S3 plugin and the
+sentry client are built from the config as the reference builds them.
+The forwarders, the import server, the falconer sink and their wire
+(grpc, google.protobuf) are imported only when the config needs them.
 
 With `native_ingest` the C++ bridge (ingest/native.py over
 native/vtpu_ingest.cpp) takes the Python UDP readers' place: its reader
@@ -90,26 +92,12 @@ log = logging.getLogger("veneur_tpu_torch.server")
 
 _STOP = object()
 
-_ITEM_9B2 = "item 9b.2, the network sinks"
-
 # (config key, refused when, ROADMAP queue A item): the keys whose value
 # this port cannot honour yet
 REFUSED_KEYS = (
     ("tpu_num_devices", lambda v: v > 1, "item 14, multi-device engine"),
     ("tpu_flush_fetch", lambda v: v != "sync", "item 16, flush fetch modes"),
     ("tpu_flush_fetch_f16", bool, "item 16, flush fetch modes"),
-    ("datadog_api_key", bool, _ITEM_9B2),
-    ("datadog_trace_api_address", bool, _ITEM_9B2),
-    ("signalfx_api_key", bool, _ITEM_9B2),
-    ("kafka_broker", bool, _ITEM_9B2),
-    ("newrelic_insert_key", bool, _ITEM_9B2),
-    ("prometheus_repeater_address", bool, _ITEM_9B2),
-    ("aws_s3_bucket", bool, _ITEM_9B2),
-    ("splunk_hec_address", bool, _ITEM_9B2),
-    ("lightstep_access_token", bool, _ITEM_9B2),
-    ("xray_address", bool, _ITEM_9B2),
-    ("falconer_address", bool, _ITEM_9B2),
-    ("sentry_dsn", bool, _ITEM_9B2),
 )
 
 
@@ -235,8 +223,8 @@ class Server:
                                      n=len(self.engines),
                                      reroute=self._route_metric)
         # one shared egress policy (retry/breaker knobs) for every
-        # config-built forwarder; per-destination breakers live inside
-        # each Egress
+        # config-built sink and forwarder; per-destination breakers live
+        # inside each Egress
         self._egress_policy = resilience.policy_from_config(cfg)
         self.sinks = sinks if sinks is not None else self._sinks_from_config()
         if plugins is not None:
@@ -246,6 +234,14 @@ class Server:
             if cfg.flush_file:
                 self.plugins.append(LocalFilePlugin(
                     cfg.flush_file, max(1, round(cfg.interval_seconds))))
+            if cfg.aws_s3_bucket:
+                from .sinks.s3 import S3Plugin
+                self.plugins.append(S3Plugin(
+                    bucket=cfg.aws_s3_bucket, region=cfg.aws_region,
+                    access_key=cfg.aws_access_key_id,
+                    secret_key=cfg.aws_secret_access_key,
+                    interval_s=max(1, round(cfg.interval_seconds)),
+                    egress_policy=self._egress_policy))
         if forwarder is None:
             forwarder = self._forwarder_from_config()
         # Durable state (off by default): crash-safe journals for the
@@ -394,6 +390,11 @@ class Server:
         # the last interval's forward bytes by destination (under
         # _stats_lock)
         self._last_forward_bytes = None
+        self._last_forward_err = None   # sentry dedupe, under _stats_lock
+        self._sentry = None
+        if cfg.sentry_dsn:
+            from .utils.sentry import SentryClient
+            self._sentry = SentryClient(cfg.sentry_dsn)
         # tags_exclude strips tag names before key construction; the
         # parser bounds reject over-long names and tags (counted)
         self._exclude_tags = frozenset(cfg.tags_exclude) or None
@@ -579,18 +580,103 @@ class Server:
             batch=self.cfg.native_pump_batch, ssf_slow_path=ssf_slow_path)
 
     def _sinks_from_config(self) -> list[MetricSink]:
-        # the network sinks are refused above (ROADMAP item 9b.2)
-        return [DebugMetricSink() if self.cfg.debug
-                else BlackholeMetricSink()]
+        out: list[MetricSink] = []
+        cfg = self.cfg
+        # every network sink gets the configured per-attempt timeout
+        # (flush_timeout) and the shared retry/breaker policy
+        pol = self._egress_policy
+        to = cfg.flush_timeout_seconds
+        if cfg.datadog_api_key:
+            from .sinks.datadog import DatadogMetricSink
+            out.append(DatadogMetricSink(
+                api_key=cfg.datadog_api_key,
+                api_url=cfg.datadog_api_hostname,
+                hostname=self.hostname,
+                tags=list(cfg.tags),
+                interval_s=max(1, round(cfg.interval_seconds)),
+                flush_max_per_body=cfg.datadog_flush_max_per_body,
+                timeout_s=to, egress_policy=pol))
+        if cfg.signalfx_api_key:
+            from .sinks.signalfx import SignalFxMetricSink
+            out.append(SignalFxMetricSink(
+                api_key=cfg.signalfx_api_key,
+                endpoint=cfg.signalfx_endpoint_base,
+                hostname=self.hostname, tags=list(cfg.tags),
+                vary_key_by=cfg.signalfx_vary_key_by,
+                timeout_s=to, egress_policy=pol))
+        if cfg.kafka_broker and (cfg.kafka_metric_topic or cfg.kafka_topic):
+            from .sinks.kafka import KafkaMetricSink
+            out.append(KafkaMetricSink(
+                broker=cfg.kafka_broker,
+                metric_topic=cfg.kafka_metric_topic or cfg.kafka_topic,
+                egress_policy=pol))
+        if cfg.newrelic_insert_key:
+            from .sinks.newrelic import NewRelicMetricSink
+            out.append(NewRelicMetricSink(
+                insert_key=cfg.newrelic_insert_key,
+                account_id=cfg.newrelic_account_id,
+                tags=list(cfg.tags),
+                interval_s=cfg.interval_seconds,
+                timeout_s=to, egress_policy=pol))
+        if cfg.prometheus_repeater_address:
+            from .sinks.prometheus import PrometheusMetricSink
+            out.append(PrometheusMetricSink(
+                listen_address=cfg.prometheus_repeater_address,
+                # one scrape surface for every veneur.* self-metric: this
+                # server's telemetry and the process-default
+                # egress/durability registry
+                registries=(self.telemetry,
+                            resilience.DEFAULT_REGISTRY)))
+        if cfg.debug:
+            out.append(DebugMetricSink())
+        if not out:
+            out.append(BlackholeMetricSink())
+        return out
 
     def _span_sinks_from_config(self):
-        """Span egress: always the ssfmetrics bridge, so embedded samples
-        reach the metric pipeline (the network span sinks are refused
-        above, ROADMAP item 9b.2)."""
+        """Span egress: always the ssfmetrics bridge first, so embedded
+        samples reach the metric pipeline, then the network span sinks
+        the config names."""
+        cfg = self.cfg
+        pol = self._egress_policy
+        to = cfg.flush_timeout_seconds
         out = [SSFMetricsSink(
             self._route_metric,
-            indicator_span_timer_name=self.cfg.indicator_span_timer_name)]
-        if self.cfg.debug:
+            indicator_span_timer_name=cfg.indicator_span_timer_name)]
+        if cfg.datadog_trace_api_address:
+            from .sinks.datadog import DatadogSpanSink
+            out.append(DatadogSpanSink(
+                trace_api_address=cfg.datadog_trace_api_address,
+                buffer_size=cfg.ssf_buffer_size,
+                timeout_s=to, egress_policy=pol))
+        if cfg.splunk_hec_address:
+            from .sinks.splunk import SplunkSpanSink
+            out.append(SplunkSpanSink(
+                hec_address=cfg.splunk_hec_address,
+                token=cfg.splunk_hec_token,
+                hostname=self.hostname,
+                timeout_s=to, egress_policy=pol))
+        if cfg.xray_address:
+            from .sinks.xray import XRaySpanSink
+            out.append(XRaySpanSink(daemon_address=cfg.xray_address))
+        if cfg.falconer_address:
+            from .sinks.grpsink import GrpcSpanSink
+            out.append(GrpcSpanSink(cfg.falconer_address,
+                                    timeout_s=to, egress_policy=pol))
+        if cfg.kafka_broker and cfg.kafka_span_topic:
+            from .sinks.kafka import KafkaSpanSink
+            out.append(KafkaSpanSink(
+                broker=cfg.kafka_broker,
+                span_topic=cfg.kafka_span_topic,
+                egress_policy=pol))
+        if cfg.lightstep_access_token:
+            from .sinks.lightstep import LightStepSpanSink
+            out.append(LightStepSpanSink(
+                access_token=cfg.lightstep_access_token,
+                collector_url=cfg.lightstep_collector_host,
+                hostname=self.hostname,
+                timeout_s=to, egress_policy=pol))
+        if cfg.debug:
             out.append(BlackholeSpanSink())
         return out
 
@@ -627,23 +713,40 @@ class Server:
     # ------------- lifecycle -------------
 
     def start(self):
-        """Start sinks, workers, listeners, the trace client, the span
-        worker, the HTTP API, the native pump, the flusher and the
-        watchdog. The port compiles nothing per shape, and each engine
-        ran its probe at construction; under native ingest the engine's
-        landings first run on scratch banks at the pump's width and
-        shorter ones (warm_ingest_kernels), so the pump's first landings
-        do not pay the device's first use of their ops under the engine
-        lock."""
-        if self.native_pump is not None:
+        """Warm every engine, then start sinks, listeners, the trace
+        client, the span worker, the HTTP API, the native pump, the
+        flusher and the watchdog. Each worker thread first runs its
+        engine's warmup() (its landings, the hot-slot sidestep and the
+        flush body once on scratch banks) and start() waits for every
+        one before a sink starts or a listener binds, so neither the
+        workers' first landings (under the engine lock) nor the first
+        flush pay the first use of their ops. The warm-up runs on the
+        thread that lands because part of that first use is per thread
+        (on the CPU, a thread's first parallel op builds its thread
+        team). Under native ingest the landings also run at the pump's
+        width."""
+        t0 = time.monotonic()
+        warmed = [threading.Event() for _ in self.engines]
+        failed: list = []
+        for i, q in enumerate(self.worker_queues):
+            self._spawn(self._worker_loop, f"worker-{i}", i, q,
+                        warmed[i], failed)
+        for ev in warmed:
+            ev.wait()
+        if failed:
+            raise failed[0]
+        if self.native_pump is not None \
+                and self.native_pump.batch != self.engines[0].cfg.batch_size:
             self.engines[0].warm_ingest_kernels(self.native_pump.batch)
+        warm_s = time.monotonic() - t0
+        if warm_s > 1.0:
+            log.info("engine warmup (the device's first use of the "
+                     "serving ops): %.1fs", warm_s)
         for s in self.sinks:
             try:
                 s.start()
             except Exception as e:
                 log.error("sink %s failed to start: %s", s.name(), e)
-        for i, q in enumerate(self.worker_queues):
-            self._spawn(self._worker_loop, f"worker-{i}", i, q)
         for addr in self.cfg.statsd_listen_addresses:
             self._start_statsd_listener(addr)
         for addr in self.cfg.ssf_listen_addresses:
@@ -1659,10 +1762,21 @@ class Server:
         # then drain()s cannot race ahead of the lines
         self._count("packet.received")
 
-    def _worker_loop(self, idx: int, q: queue.Queue):
+    def _worker_loop(self, idx: int, q: queue.Queue, warmed=None,
+                     failed=None):
         """[HOT LOOP 2] queue -> engine (Worker.Work, and
-        Worker.ImportMetricGRPC for forwarded metrics)."""
+        Worker.ImportMetricGRPC for forwarded metrics). With `warmed`, the
+        engine's warmup() runs here first, then the event is set (a
+        failure is appended to `failed` and ends the thread)."""
         eng = self.engines[idx]
+        if warmed is not None:
+            try:
+                eng.warmup()
+            except Exception as e:
+                failed.append(e)
+                return
+            finally:
+                warmed.set()
         while True:
             item = q.get()
             try:
@@ -1758,9 +1872,11 @@ class Server:
             try:
                 self.flush_once()
                 self._last_flush_ok = time.monotonic()
-            except Exception:
+            except Exception as e:
                 log.exception("flush failed")
                 self._count("flush.error")
+                if self._sentry is not None:
+                    self._sentry.capture(e, "flush failed")
 
     def flush_once(self, timestamp: int | None = None):
         """One flush tick: flush the engines and fan out (Server.Flush).
@@ -1969,10 +2085,20 @@ class Server:
         bytes_before = reg.totals_by_name_prefix("forward.bytes")
         try:
             self.forwarder(merged_export)
-        except Exception:
+            with self._stats_lock:
+                self._last_forward_err = None
+        except Exception as e:
             # the interval is parked or spilled by the ResilientForwarder;
-            # the resilience counters carry the per-tick signal
+            # the resilience counters carry the per-tick signal. A
+            # sustained outage fails every tick with the same error:
+            # sentry gets each distinct failure once
             log.exception("forward failed")
+            sig = f"{type(e).__name__}: {e}"
+            with self._stats_lock:
+                repeat = sig == self._last_forward_err
+                self._last_forward_err = sig
+            if self._sentry is not None and not repeat:
+                self._sentry.capture(e, "forward failed")
         finally:
             if ftok is not None:
                 observe.reset_current_tick(ftok)
@@ -2584,4 +2710,10 @@ class Server:
                     "flush watchdog: no completed flush in %.1fs "
                     "(max %.1fs) — exiting for supervisor restart",
                     lag, max_lag)
+                if self._sentry is not None:
+                    # the event must leave the dying process, so this
+                    # send blocks (bounded by the client's timeout)
+                    self._sentry.capture(
+                        None, "flush watchdog expired; crash-only exit",
+                        wait=True)
                 os._exit(2)

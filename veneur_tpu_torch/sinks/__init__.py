@@ -1,6 +1,5 @@
 """Egress layer: metric/span sinks and plugins (the port's copy of
-veneur_tpu/sinks/__init__.py; the network sinks wait for ROADMAP queue A
-item 9b.2).
+veneur_tpu/sinks/__init__.py, with the network sinks beside it).
 
 Parity: sinks/sinks.go (sym: MetricSink — Name/Start/Flush/
 FlushOtherSamples; SpanSink — Name/Start/Ingest/Flush) and plugins/
