@@ -22,7 +22,10 @@ the run:
                centroids, B=256 buffer) with a legal centroid prefix and
                adversarial rows (+-0.0, duplicates, a NaN payload, a
                zero-weight tail, an empty buffer, empty rows), plus the
-               C=64 cluster-overflow clip at a small shape.
+               C=64 cluster-overflow clip at a small shape, and the mesh
+               flush's merged compress (an empty prefix, D replicas'
+               compressed rows as the buffer) at B = 512 (8192 rows, a
+               2 x 4 grid's column) and B = 2048 (4096 rows, 8 x 1).
   3. hll_stats the HLL estimate reduction against its plain version at
                [4096, 16384] u8 registers and at a ragged [37, 1000].
   4. ull_insert the ULL scatter-join insert against its plain version on
@@ -291,8 +294,36 @@ the run:
                phase ms of S1's tick, its veneur.sink.* rows, its requests
                and bytes, and S1's fan-out phase.
 
+  14. mesh     the multi-device engine (veneur_tpu_torch/parallel/) with
+               every instance of its grid on the one card, at the
+               deployment defaults (EngineConfig(): 32768 t-digest slots
+               at C = B = 256, 16384 counters and gauges, 4096 HLL sets at
+               p = 14, batch 8192). (a) Phase 5's interval A (20000 keys x
+               25, 1000 sets x 1000, 3000 datagrams) through a 2 x 4
+               MeshAggregationEngine (its routing lands every batch on dp
+               row 0), flushed, then an empty interval; then the same
+               stream straight into MeshEngine.ingest, half of each bank's
+               samples on each dp row, so the merge gathers two live
+               replicas (compress at B = 512). Each flush against numpy
+               truth (phase 5's contract) and against the port's
+               single-device engine fed the same stream (percentiles
+               within 1% of the key's spread, sets rtol 1e-5, the rest
+               exact). (b) Server(Config(tpu_num_devices=8)), a 1 x 8
+               grid, over real UDP with phase 7's lines, flushed once,
+               against truth. (c) A mesh global (tpu_num_devices 8, a gRPC
+               import listener) fed by a port local over real gRPC (2000
+               mixed timers x 25, 1000 global-only counters x 4 and
+               gauges, 200 sets x 100), against truth. (d) Interval A's
+               flush on a single-device default engine under each
+               flush_fetch mode and f16, in two turns (the second in
+               reverse order): the rows against sync's (f16 within its
+               rounding, counts exact). The launches of each
+               step equal MESH_LAUNCHES. Printed: each flush's wall,
+               swap, merge, assembly and collector pauses, the ingest
+               rates, and each fetch mode's device.fetch ms and bytes.
+
 Then it prints one JSON line describing every kernel (its launches are
-those of phases 5 and 7-13, the main paths), the card's name
+those of phases 5 and 7-14, the main paths), the card's name
 and power limit as nvidia-smi reports them, and, last, the device line
 {"ok": true, "device": {...}}. Without a card, or without the package
 beside it, it exits non-zero and prints no result.
@@ -551,21 +582,44 @@ def check_adversarial_rows(args, km, kw, pm, pw):
           "empty row is not a fixed point")
 
 
-def phase_compress(device, K=SERVE_K, C=SERVE_C, B=SERVE_B):
-    """Kernel vs plain at the serving shape. Tolerance: none. Both
-    versions evaluate the same float64 sums in the same lane order and k1
-    in float64, so the run fails unless every row is bit for bit equal
-    (NaN positions matching), each row's total weight agrees with its
-    inputs within rtol 1e-6, the kernel's output keeps the SR02
-    ordering invariant, and each adversarial row passes its own
-    checks."""
+def merge_inputs(device, K, C, D, seed=11):
+    """The mesh flush's merged compress input at B = D * C: an empty
+    [K, C] prefix and, as the buffer, D replicas' compressed centroid
+    rows side by side, replica 0 first (the grid's gather)."""
+    import torch
+    reps = [compress_inputs(device, K, C, C, seed=seed + d,
+                            adversarial=False)[:2] for d in range(D)]
+    z = torch.zeros(K, C, dtype=torch.float32, device=device)
+    return (z, z.clone(), torch.cat([m for m, _ in reps], dim=1),
+            torch.cat([w for _, w in reps], dim=1))
+
+
+# the mesh's merged compress shapes (rows, replicas): a 2 x 4 grid's
+# column of the default 32768 slots, B = 512; an 8 x 1 grid's, B = 2048
+MERGE_SHAPES = ((SERVE_K // 4, 2), (SERVE_K // 8, 8))
+
+
+def phase_compress(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
+                   merge=MERGE_SHAPES):
+    """Kernel vs plain at the serving shape, at the C=64 overflow clip and
+    at the mesh's merge widths (`merge`: rows and replicas, B = D * C, an
+    empty prefix). Tolerance: none. Both versions evaluate the same
+    float64 sums in the same lane order and k1 in float64, so the run
+    fails unless every row is bit for bit equal (NaN positions matching),
+    each row's total weight agrees with its inputs within rtol 1e-6, the
+    kernel's output keeps the SR02 ordering invariant, and each
+    adversarial row passes its own checks."""
     import torch
     from veneur_tpu_torch.kernels import compress as kc
     out = {}
-    for label, (k, c, b, adv) in {
-            "serving": (K, C, B, True),
-            "overflow_clip": (5, 64, 512, False)}.items():
-        if label == "overflow_clip":
+    cases = {"serving": (K, C, B, True),
+             "overflow_clip": (5, 64, 512, False)}
+    for km, dm in merge:
+        cases[f"merge_B{dm * C}"] = (km, C, dm * C, False)
+    for label, (k, c, b, adv) in cases.items():
+        if label.startswith("merge"):
+            args = merge_inputs(device, k, c, b // c)
+        elif label == "overflow_clip":
             rng = np.random.default_rng(9)
             z = torch.zeros(k, c, dtype=torch.float32, device=device)
             bv = torch.as_tensor(np.sort(rng.normal(0, 100, (k, b)))
@@ -888,13 +942,13 @@ def build_interval(rng, spec, tag):
     return d
 
 
-def feed(eng, d, truth=None):
+def feed(eng, d):
     """Drive one interval's data through the engine's user entry
-    points. Returns the set ingest's numbers: the bulk set updates, the
-    wall time of their loop, ended by landing the landing buffer's
-    remainder and a synchronize, so that every bulk update counted has
-    landed, and the updates that reached the set engine in the interval
-    (datagram sets included)."""
+    points (its truth is truth_of(d)). Returns the set ingest's numbers:
+    the bulk set updates, the wall time of their loop, ended by landing
+    the landing buffer's remainder and a synchronize, so that every bulk
+    update counted has landed, and the updates that reached the set
+    engine in the interval (datagram sets included)."""
     from veneur_tpu_torch.ingest.parser import (
         ServiceCheck, UDPMetric, parse_packet)
     b = eng.cfg.batch_size
@@ -906,16 +960,11 @@ def feed(eng, d, truth=None):
             eng.process_service_check(m)
         elif isinstance(m, UDPMetric):
             eng.process(m)
-            if truth is not None:
-                truth.add_parsed(m)
     if "histo" in d:
         nh, per, vals, order = d["histo"]
         names = [f"bulk.h.{i}" for i in range(nh)]
         slots = np.repeat(_intern(eng.histo_keys, names, "timer"), per)
         _feed_histos(eng, slots[order], vals.reshape(-1)[order], b)
-        if truth is not None:
-            for i, n in enumerate(names):
-                truth.histo[(n, ())] = vals[i]
     if "counter" in d:
         v = d["counter"]
         names = [f"bulk.c.{i}" for i in range(len(v))]
@@ -927,10 +976,6 @@ def feed(eng, d, truth=None):
             eng.ingest_counter_batch(s, flat[i:i + b],
                                      np.ones(len(s), np.float32),
                                      count=len(s))
-        if truth is not None:
-            for i, n in enumerate(names):
-                truth.counter[(n, ())] = float(v[i].astype(np.float64)
-                                               .sum())
     if "gauge" in d:
         v = d["gauge"]
         names = [f"bulk.g.{i}" for i in range(len(v))]
@@ -940,9 +985,6 @@ def feed(eng, d, truth=None):
         for i in range(0, len(slots), b):
             s = slots[i:i + b]
             eng.ingest_gauge_batch(s, flat[i:i + b], count=len(s))
-        if truth is not None:
-            for i, n in enumerate(names):
-                truth.gauge[(n, ())] = float(v[i, -1])
     if "set" in d:
         h = d["set"]
         names = [f"bulk.s.{i}" for i in range(len(h))]
@@ -953,23 +995,16 @@ def feed(eng, d, truth=None):
             s = slots[i:i + b]
             eng.ingest_set_batch(s, idx[i:i + b], rho[i:i + b],
                                  count=len(s))
-        with eng.lock:   # land the buffer's remainder inside the window
-            eng.set_bank = eng._land_set_buffer(eng.set_bank,
-                                                eng._set_landing)
+        land_set_remainder(eng)    # the remainder, inside the window
         sync(eng.device)
         out["set_ingest_ms"] = (time.perf_counter() - t0) * 1e3
         out["set_updates"] = len(slots)
         out["set_updates_fed"] += len(slots)
-        if truth is not None:
-            for i, n in enumerate(names):
-                truth.sets[(n, ())] = len(np.unique(h[i]))
     if "hot" in d:
         v = d["hot"]
         slot = _intern(eng.histo_keys, ["hot.lat"], "timer")[0]
         eng.ingest_histo_batch(np.full(len(v), slot, np.int32), v,
                                np.ones(len(v), np.float32), count=len(v))
-        if truth is not None:
-            truth.histo[("hot.lat", ())] = v
     return out
 
 
@@ -1151,9 +1186,9 @@ def phase_main(device, path="default", cfg_kw=None, plan=None):
     eng = AggregationEngine(EngineConfig(**cfg_kw), device=device)
     capacity = eng._set_landing.capacity
     for i, (label, d) in enumerate(data.items()):
-        truth = Truth()
+        truth = truth_of(d)
         n_before = kernels.launches["ull_insert"]
-        sets = feed(eng, d, truth)
+        sets = feed(eng, d)
         sets["set_ingest_launches"] = kernels.launches["ull_insert"] \
             - n_before
         if sets["set_updates"]:
@@ -1464,7 +1499,8 @@ def time_set_routes(device, cfg_kw, sets, members, rounds):
 
 def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
                  KS=SERVE_SETS, m=SERVE_M, mu=SERVE_ULL_M, n=SERVE_BATCH,
-                 n_landing=None, reps=(20, 3, 200), routes=None):
+                 n_landing=None, reps=(20, 3, 200), routes=None,
+                 merge=MERGE_SHAPES[0]):
     """Per kernel: the median time a call (CUDA events around the
     wrapper, so the host's share of the call is in it), the plain
     version's, the device time from torch.profiler and the bound;
@@ -1473,7 +1509,8 @@ def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
     torch.add(x, 1.0) run in turns, reps[2] rounds. `routes` (engine
     config overrides, sets, members, rounds) sizes the comparison of the
     two set landing routes; the default is interval A at the deployment
-    defaults."""
+    defaults. `merge` (rows, replicas) times the compress at the mesh's
+    merge width, B = replicas * C (compress_merge)."""
     import torch
     from veneur_tpu_torch.kernels import compress as kc
     from veneur_tpu_torch.kernels import hll_stats as kh
@@ -1495,6 +1532,19 @@ def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
         "bound_parts": parts, "live": live, "boundaries": boundaries,
         "shape": [K, C, B]}
+    margs = merge_inputs(device, merge[0], C, merge[1])
+    mlive = int((margs[3] > 0).sum())
+    mbound = compress_bound_ms(
+        merge[0], C, merge[1] * C, mlive,
+        int((kc.fused_compress(*margs, 100.0)[1] > 0).sum()))
+    out["compress_merge"] = {
+        "ms": time_ms(lambda: kc.fused_compress(*margs, 100.0), device,
+                      reps[0]),
+        "plain_ms": time_ms(lambda: kc.compress_plain(*margs, 100.0),
+                            device, reps[1]),
+        "bound_ms": mbound[0], "bound_by": mbound[1], "bytes": mbound[2],
+        "ops": mbound[3], "live": mlive,
+        "shape": [merge[0], C, merge[1] * C]}
     bound, by, nbytes, ops = hll_bound_ms(KS, m)
     out["hll_stats"] = {
         "ms": time_ms(lambda: kh.hll_stats(regs), device, reps[0]),
@@ -1544,6 +1594,9 @@ def phase_timing(device, K=SERVE_K, C=SERVE_C, B=SERVE_B,
             "probe_kernel": [lambda: kp.probe_add(x)] * 10}, device)
         for name in ("compress", "hll_stats", "probe"):
             out[name]["device_ms"] = dev_ms.get(f"{name}_kernel")
+        out["compress_merge"]["device_ms"] = kernel_device_ms({
+            "compress_kernel": [lambda: kc.fused_compress(*margs, 100.0)]
+            * 3}, device).get("compress_kernel")
         # each shape on its own trace: both launch the same symbol
         for name, (fresh, slots, idx, vals) in insert_args.items():
             banks = [fresh() for _ in range(10)]
@@ -5521,6 +5574,556 @@ def print_sinks_timings(s, card):
           f"failed forwards; stop {json.dumps(s['stop_s'])} | {card}")
 
 
+# ------------------------------------------------------------- phase 14
+
+# the multi-device engine's grid on the one card: 2 dp replicas x 4 shard
+# columns, every instance on the same device
+MESH_DP, MESH_SHARDS = 2, 4
+# (b)'s server: tpu_num_devices 8, a 1 x 8 grid
+MESH_SERVER_DEVICES = 8
+# (c): the traffic of the port local that forwards to the mesh global:
+# mixed timers (keys, samples), global-only counters (keys, samples),
+# global-only gauges, mixed sets (keys, members)
+MESH_GLOBAL_PLAN = {"timers": (2000, 25), "counters": (1000, 4),
+                    "gauges": 1000, "sets": (200, 100)}
+# (d): (flush_fetch, flush_fetch_f16) of the single-device engines
+FETCH_CASES = (("sync", False), ("staged", False), ("host", False),
+               ("async", False), ("sync", True))
+
+
+def fetch_turns():
+    """(turn, case) in measuring order: FETCH_CASES, then reversed."""
+    return [(1, c) for c in FETCH_CASES] + [(2, c) for c in
+                                            FETCH_CASES[::-1]]
+
+
+def _mesh_launches(D, S, single_dev_S=MESH_SERVER_DEVICES):
+    """MESH_LAUNCHES from the code, written before the first chip run
+    (PERF.md section 6). A mesh flush compresses each of a column's D
+    replicas and the merged bank (S * (D + 1) compresses; one on a 1 x 1
+    grid, which runs the single-device body) and reduces each
+    column's merged registers (S hll_stats), on a full flush every time (no
+    incremental path), an empty one too. A probe at each engine's
+    construction (one distinct card). No landing overfills a buffer (25
+    samples a key at most, buffer 256; imported digests land one item a
+    slot a round), so ingest launches nothing. A mesh server's start()
+    warms the ingest ops (one row a slot: no compress) and flushes fresh
+    banks once. A single-device engine's first flush computes the
+    baseline rows and the work set (two compresses, two hll_stats); a
+    single-device server's start() is START_LAUNCHES."""
+    flush = _launch_row(compress=1 if D * S == 1 else S * (D + 1),
+                        hll_stats=S)
+    server = _launch_row(compress=2 * single_dev_S,
+                         hll_stats=single_dev_S)
+    single = _launch_row(compress=2, hll_stats=2, probe=1)
+    out = {
+        "engine construction": _launch_row(probe=1),
+        "engine A ingest": _launch_row(),
+        "engine A flush": flush,
+        "engine empty flush": flush,
+        "direct construction": _launch_row(probe=1),
+        "direct A ingest": _launch_row(),
+        "direct A flush": flush,
+        "direct empty flush": flush,
+        "single-device A": single,
+        "server construction": _launch_row(probe=1),
+        "server start": server,
+        "server ingest": _launch_row(),
+        "server S1": server,
+        "global construction": _launch_row(probe=2),
+        "global start": {k: server[k] + START_LAUNCHES[k] for k in server},
+        "global ingest": _launch_row(),
+        "global forward": _launch_row(compress=2, hll_stats=2),
+        "global flush": server,
+    }
+    for turn, (mode, f16) in fetch_turns():
+        out[f"fetch {mode}{' f16' if f16 else ''} turn {turn}"] = single
+    return out
+
+
+MESH_LAUNCHES = _mesh_launches(MESH_DP, MESH_SHARDS)
+
+
+def truth_of(d):
+    """The Truth of interval data `d` (build_interval): the parsed
+    metric lines, and the bulk arrays under the names feed() interns."""
+    from veneur_tpu_torch.ingest.parser import UDPMetric, parse_packet
+    truth = Truth()
+    for ln in d["lines"]:
+        m = parse_packet(ln)
+        if isinstance(m, UDPMetric):
+            truth.add_parsed(m)
+    if "histo" in d:
+        nh, _per, vals, _order = d["histo"]
+        for i in range(nh):
+            truth.histo[(f"bulk.h.{i}", ())] = vals[i]
+    for i, v in enumerate(d.get("counter", ())):
+        truth.counter[(f"bulk.c.{i}", ())] = float(v.astype(np.float64)
+                                                   .sum())
+    for i, v in enumerate(d.get("gauge", ())):
+        truth.gauge[(f"bulk.g.{i}", ())] = float(v[-1])
+    for i, h in enumerate(d.get("set", ())):
+        truth.sets[(f"bulk.s.{i}", ())] = len(np.unique(h))
+    if "hot" in d:
+        truth.histo[("hot.lat", ())] = d["hot"]
+    return truth
+
+
+def samples_of(d):
+    """The samples of interval data `d`: its metric lines (all but the
+    service check) and its bulk arrays."""
+    n = sum(1 for ln in d["lines"] if not ln.startswith(b"_"))
+    n += sum(d[k].size for k in ("counter", "gauge", "set") if k in d)
+    if "histo" in d:
+        n += d["histo"][0] * d["histo"][1]
+    return n + len(d.get("hot", ()))
+
+
+def land_set_remainder(eng):
+    """Land the set landing buffer's remainder in the live bank (the
+    single-device engine's; the mesh engine lands every batch as it
+    comes and keeps no buffer)."""
+    if getattr(eng, "set_bank", None) is None:
+        return
+    with eng.lock:
+        eng.set_bank = eng._land_set_buffer(eng.set_bank, eng._set_landing)
+
+
+def direct_arrays(eng, d):
+    """Interval data `d` (build_interval) as per-bank flat arrays of the
+    engine's global slot ids, in stream order: the datagram lines first
+    (parsed and interned on `eng`'s interners, as process() would), then
+    the bulk arrays (as feed() interns them). Gauge sequences follow the
+    stream; set members are hashed as the engine hashes them."""
+    from veneur_tpu_torch.ingest.parser import UDPMetric, parse_packet
+    from veneur_tpu_torch.utils import hashing
+    cols = {"histo": ([], [], []), "counter": ([], [], []),
+            "gauge": ([], []), "set": ([], [], [])}
+    interner = {"timer": eng.histo_keys, "histogram": eng.histo_keys,
+                "counter": eng.counter_keys, "gauge": eng.gauge_keys,
+                "set": eng.set_keys}
+    for ln in d["lines"]:
+        m = parse_packet(ln)
+        if not isinstance(m, UDPMetric):
+            continue
+        t = m.key.type
+        slot = interner[t].lookup(m.key, m.scope)
+        if t in ("timer", "histogram", "counter"):
+            c = cols["histo" if t != "counter" else "counter"]
+            c[0].append(slot)
+            c[1].append(m.value)
+            c[2].append(1.0 / m.sample_rate)
+        elif t == "gauge":
+            cols["gauge"][0].append(slot)
+            cols["gauge"][1].append(m.value)
+        else:
+            idx, val = eng._seng.hash_update(
+                hashing.set_member_hash(str(m.value)))
+            c = cols["set"]
+            c[0].append(slot)
+            c[1].append(idx)
+            c[2].append(val)
+    out = {k: [np.asarray(a) for a in v] for k, v in cols.items()}
+
+    def extend(kind, *arrays):
+        out[kind] = [np.concatenate([a, b]) for a, b in
+                     zip(out[kind], arrays)]
+    if "histo" in d:
+        nh, per, vals, order = d["histo"]
+        slots = np.repeat(_intern(eng.histo_keys, [f"bulk.h.{i}" for i in
+                                                   range(nh)], "timer"), per)
+        extend("histo", slots[order], vals.reshape(-1)[order],
+               np.ones(nh * per))
+    if "counter" in d:
+        v = d["counter"]
+        slots = np.tile(_intern(eng.counter_keys, [f"bulk.c.{i}" for i in
+                                                   range(len(v))],
+                                "counter"), v.shape[1])
+        extend("counter", slots, v.T.reshape(-1), np.ones(v.size))
+    if "gauge" in d:
+        v = d["gauge"]
+        slots = np.tile(_intern(eng.gauge_keys, [f"bulk.g.{i}" for i in
+                                                 range(len(v))], "gauge"),
+                        v.shape[1])
+        extend("gauge", slots, v.T.reshape(-1))
+    if "set" in d:
+        h = d["set"]
+        slots = np.repeat(_intern(eng.set_keys, [f"bulk.s.{i}" for i in
+                                                 range(len(h))], "set"),
+                          h.shape[1])
+        idx, rho = eng._seng.host_hash_to_updates(h.reshape(-1))
+        extend("set", slots, idx, rho)
+    dt = {"histo": (np.int32, np.float32, np.float32),
+          "counter": (np.int32, np.float32, np.float32),
+          "gauge": (np.int32, np.float32),
+          "set": (np.int32, np.int32, np.uint8)}
+    out = {k: [a.astype(t) for a, t in zip(v, dt[k])]
+           for k, v in out.items()}
+    out["gauge"].append(np.arange(1, len(out["gauge"][0]) + 1,
+                                  dtype=np.int32))
+    return out
+
+
+def feed_direct(eng, arrays, batch):
+    """Land flat per-bank arrays straight through MeshEngine.ingest: the
+    first half of each bank's samples on dp row 0, the second on dp row 1
+    (route_batch(..., dp_row=d)), `batch` samples a routed batch."""
+    me = eng.me
+    names = {"histo": ("h_slots", "h_vals", "h_wts"),
+             "counter": ("c_slots", "c_vals", "c_wts"),
+             "gauge": ("g_slots", "g_vals", "g_seqs"),
+             "set": ("s_slots", "s_idx", "s_rho")}
+    slots_of = {"histo": me.histogram_slots, "counter": me.counter_slots,
+                "gauge": me.gauge_slots, "set": me.set_slots}
+    for kind, cols in arrays.items():
+        n = len(cols[0])
+        for d, (lo, hi) in enumerate(((0, n // 2), (n // 2, n))):
+            for i in range(lo, hi, batch):
+                j = min(hi, i + batch)
+                *routed, over = me.route_batch(
+                    *(c[i:j] for c in cols),
+                    slots_per_shard=slots_of[kind] // me.S,
+                    n_per_segment=batch, dp_row=d,
+                    fill=0 if kind == "set" else 0.0)
+                check(over == 0, f"{kind}: {over} samples overflowed")
+                me.ingest(**dict(zip(names[kind], routed)))
+
+
+def _flush_rec(eng, res, ms, gc_ms):
+    return {"flush_ms": ms, "swap_ms": res.stats["swap_ns"] / 1e6,
+            "merge_ms": res.stats["merge_ns"] / 1e6,
+            "assembly_ms": res.stats["assembly_ns"] / 1e6, "gc_ms": gc_ms,
+            "rows": len(res.frame)}
+
+
+def rows_under_contract(got, want, label):
+    """Two engines' rows of one stream: the same keys; percentiles within
+    1% of the key's spread (its max - min row); set estimates rtol 1e-5;
+    every other row exact. Returns the worst percentile error over the
+    spread."""
+    check(got.keys() == want.keys(),
+          f"{label}: row keys differ by "
+          f"{len(set(got) ^ set(want))}")
+    worst = 0.0
+    sets = {k for k in want if k[0].startswith(("bulk.s.", "dg.users."))}
+    for k, w in want.items():
+        g, w = got[k].value, w.value
+        name = k[0]
+        if name.endswith("percentile"):
+            base = name.rsplit(".", 1)[0]
+            spread = want[(base + ".max", k[1])].value \
+                - want[(base + ".min", k[1])].value
+            err = abs(g - w) / spread if spread > 0 else abs(g - w)
+            worst = max(worst, err)
+            check(err <= 0.01 + 1e-6, f"{label} {k}: {g} vs {w}")
+        elif k in sets:
+            check(abs(g - w) <= 1e-5 * abs(w), f"{label} {k}: {g} vs {w}")
+        else:
+            check(g == w, f"{label} {k}: {g} vs {w}")
+    return worst
+
+
+def mesh_global_traffic(rng, plan):
+    """The local's lines for (c): mixed timers (their digests forward),
+    global-only counters and gauges, mixed sets; with their Truth."""
+    from veneur_tpu_torch.ingest.parser import parse_packet
+    lines = []
+    nt, per = plan["timers"]
+    for i in range(nt):
+        lines += [f"mg.lat.{i}:{v:.4f}|ms" for v in rng.lognormal(3, 1, per)]
+    nc, per = plan["counters"]
+    for i in range(nc):
+        lines += [f"mg.hits.{i}:{v}|c|#veneurglobalonly"
+                  for v in rng.integers(1, 100, per)]
+    lines += [f"mg.temp.{i}:{rng.normal(50, 10):.3f}|g|#veneurglobalonly"
+              for i in range(plan["gauges"])]
+    ns, members = plan["sets"]
+    for i in range(ns):
+        lines += [f"mg.users.{i}:u{i}-{j}|s" for j in range(members)]
+    lines = [lines[i].encode() for i in rng.permutation(len(lines))]
+    truth = Truth()
+    for ln in lines:
+        truth.add_parsed(parse_packet(ln))
+    return lines, truth
+
+
+def phase_mesh(device, cfg_kw=None, plan=None, grid=(MESH_DP, MESH_SHARDS),
+               srv_cfg_kw=None, srv_plan=None, glob_plan=None,
+               n_server=MESH_SERVER_DEVICES):
+    """The multi-device engine (parallel/) on `device`, every instance of
+    its grid on that one card. (a) Engine: interval A of SERVE_PLAN
+    through MeshAggregationEngine (a 2 x 4 grid; its routing lands every
+    batch on dp row 0), flushed, then an empty interval; then the same
+    stream straight into MeshEngine.ingest, half of each bank's samples
+    on each dp row, so the flush's merge gathers two live replicas;
+    each against numpy truth (phase 5's contract) and against the port's
+    single-device engine fed the same stream (percentiles within 1% of the
+    key's spread, sets rtol 1e-5, the rest exact). (b) A mesh Server
+    (tpu_num_devices 8) over real UDP with phase 7's lines, flushed once,
+    against truth. (c) A mesh global (gRPC import listener) fed by a port
+    local over real gRPC, against truth. (d) Interval A's flush under
+    each fetch mode and f16 on a single-device engine, in two turns (the
+    second in reverse order): the rows against sync's, the device.fetch
+    ms and the bytes fetched. The launches of
+    every step equal MESH_LAUNCHES (on the card). `cfg_kw`, `plan` and
+    the rest override the widths and the traffic (CPU rehearsals)."""
+    from veneur_tpu_torch import kernels
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.metrics import MetricType
+    from veneur_tpu_torch.models.pipeline import (
+        AggregationEngine, EngineConfig)
+    from veneur_tpu_torch.parallel.engine import MeshAggregationEngine
+    from veneur_tpu_torch.server import Server
+    from veneur_tpu_torch.sinks.basic import CaptureMetricSink
+    cfg_kw = cfg_kw or {}
+    plan = plan or {"A": SERVE_PLAN["A"]}
+    D, S = grid
+    rng = np.random.default_rng(14)
+    data = build_interval(rng, plan["A"], "A")
+    launches = {}
+    out = {"grid": [D, S], "steps": {}}
+
+    def counted(label, fn):
+        before = dict(kernels.launches)
+        r = fn()
+        launches[label] = {k: n - before[k]
+                           for k, n in kernels.launches.items()}
+        return r
+
+    def timed_flush(eng, label, ts):
+        with GcPauses() as gcp:
+            t0 = time.monotonic()
+            res = counted(label, lambda: eng.flush(timestamp=ts))
+            ms = (time.monotonic() - t0) * 1e3
+        out["steps"][label] = _flush_rec(eng, res, ms, gcp.ms)
+        return res
+
+    kernels.reset_launches()
+    # (a) through the engine's routing (dp row 0), then straight in
+    truth = truth_of(data)
+    n_samples = samples_of(data)
+    results = {}
+    for arm in ("engine", "direct"):
+        eng = counted(f"{arm} construction", lambda: MeshAggregationEngine(
+            EngineConfig(**cfg_kw), devices=[device] * (D * S), n_dp=D))
+        check(eng.me.mesh.shape == {"dp": D, "shard": S}, "grid shape")
+
+        def ingest():
+            t0 = time.perf_counter()
+            if arm == "engine":
+                feed(eng, data)
+                land_set_remainder(eng)
+            else:
+                feed_direct(eng, direct_arrays(eng, data),
+                            eng.cfg.batch_size)
+            sync(device)
+            return time.perf_counter() - t0
+        secs = counted(f"{arm} A ingest", ingest)
+        out["steps"][f"{arm} A ingest"] = {
+            "s": secs, "samples": n_samples,
+            "samples_per_s": n_samples / secs}
+        res = timed_flush(eng, f"{arm} A flush", 3000)
+        out["steps"][f"{arm} A flush"]["worst"] = check_against_truth(
+            res, truth, eng, f"mesh {arm} A")
+        results[arm] = rows_of(res)
+        res = timed_flush(eng, f"{arm} empty flush", 3001)
+        check(len(res.metrics) == 0, f"{arm}: the empty interval flushed rows")
+        del eng
+
+    def single_device():
+        eng = AggregationEngine(EngineConfig(**cfg_kw), device=device)
+        feed(eng, data)
+        return rows_of(eng.flush(timestamp=3000))
+    single = counted("single-device A", single_device)
+    for arm, rows in results.items():
+        data_rows = {k: m for k, m in rows.items()
+                     if m.type != MetricType.STATUS}
+        want = {k: m for k, m in single.items()
+                if m.type != MetricType.STATUS}
+        out["steps"][f"{arm} A flush"]["vs_single_device"] = \
+            rows_under_contract(data_rows, want, f"{arm} vs single")
+
+    # (b) a mesh server over real UDP
+    srv_plan = srv_plan or SERVER_PLAN
+    lines, truth, checks, _titles = server_traffic(
+        np.random.default_rng(15), srv_plan)
+    cfg = Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                 interval="3600s", hostname="chip",
+                 tpu_num_devices=n_server, **(srv_cfg_kw or {}))
+    dgrams = pack_datagrams(lines, cfg.metric_max_length)
+    cap = CaptureMetricSink()
+    srv = counted("server construction",
+                  lambda: Server(cfg, sinks=[cap], device=device))
+    check(type(srv.engines[0]).__name__ == "MeshAggregationEngine",
+          "the server built no mesh engine")
+    try:
+        counted("server start", srv.start)
+
+        def ingest_srv():
+            t0 = time.perf_counter()
+            send_paced(srv, dgrams)
+            check(srv.drain(timeout=120), "drain() timed out")
+            return time.perf_counter() - t0
+        secs = counted("server ingest", ingest_srv)
+        out["server"] = {"datagrams": len(dgrams), "lines": len(lines),
+                         "ingest_s": secs,
+                         "lines_per_s": len(lines) / secs}
+        with GcPauses() as gcp:
+            counted("server S1", lambda: srv.flush_once(timestamp=3100))
+        check(cap.wait_for_flush(1, timeout=120), "server: no flush")
+        for t in list(srv._sink_inflight.values()):
+            t.join(120)
+        s1 = {(m.name, tuple(m.tags)): m for m in cap.flushes[0]}
+        out["server"].update({
+            k.split(".")[-1]: s1[(f"veneur.flush.{k}", ())].value / 1e6
+            for k in ("total_duration_ns", "swap_duration_ns",
+                      "merge_duration_ns", "assembly_duration_ns")})
+        out["server"]["gc_ms"] = gcp.ms
+        got = s1[("veneur.packet.received_total", ())].value
+        check(got == len(dgrams), f"server: {got} of {len(dgrams)} "
+              "datagrams received")
+        rows = [m for m in s1.values() if not m.name.startswith("veneur.")
+                and m.type != MetricType.STATUS]
+        out["server"]["worst"] = check_against_truth(
+            types.SimpleNamespace(metrics=rows, frame=rows), truth,
+            srv.engines[0], "mesh server S1")
+        status = {m.name: m.value for m in s1.values()
+                  if m.type == MetricType.STATUS}
+        check(status == {k: float(v) for k, v in checks.items()},
+              "mesh server: status rows")
+    finally:
+        srv.stop()
+
+    # (c) a port local forwarding over gRPC to a mesh global
+    glob_plan = glob_plan or MESH_GLOBAL_PLAN
+    lines, truth = mesh_global_traffic(np.random.default_rng(16), glob_plan)
+    gcap, lcap = CaptureMetricSink(), CaptureMetricSink()
+    gport = free_port(socket.SOCK_STREAM)
+
+    def build_pair():
+        glob = Server(Config(
+            grpc_listen_addresses=[f"127.0.0.1:{gport}"], interval="3600s",
+            hostname="chip-global", tpu_num_devices=n_server,
+            **(srv_cfg_kw or {})), sinks=[gcap], device=device)
+        local = Server(Config(
+            statsd_listen_addresses=["udp://127.0.0.1:0"],
+            forward_address=f"127.0.0.1:{gport}", interval="3600s",
+            hostname="chip-local", **(srv_cfg_kw or {})), sinks=[lcap],
+            device=device)
+        return glob, local
+    glob, local = counted("global construction", build_pair)
+    check(type(glob.engines[0]).__name__ == "MeshAggregationEngine",
+          "the global built no mesh engine")
+    try:
+        def start_pair():
+            glob.start()
+            local.start()
+        counted("global start", start_pair)
+
+        def ingest_local():
+            send_paced(local, pack_datagrams(lines, 4096))
+            check(local.drain(timeout=120), "local drain() timed out")
+        counted("global ingest", ingest_local)
+
+        def forward():
+            t0 = time.perf_counter()
+            local.flush_once(timestamp=3200)
+            check(glob.drain(timeout=120), "global drain() timed out")
+            return time.perf_counter() - t0
+        fwd_s = counted("global forward", forward)
+        with GcPauses() as gcp:
+            t0 = time.perf_counter()
+            counted("global flush", lambda: glob.flush_once(timestamp=3200))
+            flush_s = time.perf_counter() - t0
+        check(gcap.wait_for_flush(1, timeout=120), "global: no flush")
+        rows = [m for m in gcap.flushes[0]
+                if not m.name.startswith("veneur.")]
+        out["global"] = {
+            "forward_s": fwd_s, "flush_ms": flush_s * 1e3, "gc_ms": gcp.ms,
+            "rows": len(rows),
+            "worst": check_against_truth(
+                types.SimpleNamespace(metrics=rows, frame=rows), truth,
+                glob.engines[0], "mesh global")}
+    finally:
+        local.stop()
+        glob.stop()
+
+    # (d) interval A's flush under each fetch mode, on a single-device
+    # engine, in two turns (the cases, then in reverse order), so that no
+    # mode is always measured first
+    out["fetch"] = {}
+    base = None
+    for turn, (mode, f16) in fetch_turns():
+        case = f"fetch {mode}{' f16' if f16 else ''}"
+        label = f"{case} turn {turn}"
+
+        def one():
+            eng = AggregationEngine(EngineConfig(
+                flush_fetch=mode, flush_fetch_f16=f16, **cfg_kw),
+                device=device)
+            feed(eng, data)
+            return eng.flush(timestamp=3300)
+        res = counted(label, one)
+        phases = {p[0]: (p[2] - p[1]) / 1e6 for p in res.stats["phases"]}
+        rows = rows_of(res)
+        if base is None:
+            base = rows
+        check(rows.keys() == base.keys(), f"{label}: row keys differ")
+        for k, m in base.items():
+            g, w = rows[k].value, m.value
+            exact = not f16 or k[0].endswith(".count") \
+                or not k[0].startswith(("bulk.h.", "dg.lat.", "dg.size."))
+            check(g == w if exact else abs(g - w) <= 1e-3 * abs(w),
+                  f"{label} {k}: {g} vs sync's {w}")
+        rec = out["fetch"].setdefault(case, {
+            "fetch_ms": [], "exec_ms": [], "bytes": res.stats["fetch_bytes"]})
+        rec["fetch_ms"].append(phases.get("device.fetch"))
+        rec["exec_ms"].append(phases.get("device.exec"))
+    out["launches_by_step"] = launches
+    out["launches"] = {k: sum(step[k] for step in launches.values())
+                       for k in kernels.launches}
+    print(f"mesh launches: {json.dumps(launches)}")
+    if device.type == "cuda":
+        check(launches == MESH_LAUNCHES,
+              f"mesh launches {launches}, predicted {MESH_LAUNCHES}")
+    print(f"mesh: {json.dumps(out)}")
+    return out
+
+
+def print_mesh_timings(m, card):
+    """Phase 14's times, a line each, with the card."""
+    D, S = m["grid"]
+    for arm in ("engine", "direct"):
+        ing = m["steps"][f"{arm} A ingest"]
+        print(f"timing mesh {D}x{S} {arm} ingest: {ing['samples']} samples "
+              f"in {ing['s']:.3f} s, {ing['samples_per_s']:.0f} samples/s "
+              f"| {card}")
+        for label in ("A flush", "empty flush"):
+            f = m["steps"][f"{arm} {label}"]
+            print(f"timing mesh {D}x{S} {arm} {label}: {f['flush_ms']:.2f} "
+                  f"ms, swap {f['swap_ms']:.2f}, merge {f['merge_ms']:.2f}, "
+                  f"assembly {f['assembly_ms']:.2f}, gc {f['gc_ms']:.2f}, "
+                  f"{f['rows']} rows, kernel launches "
+                  f"{m['launches_by_step'][f'{arm} {label}']} | {card}")
+    s = m["server"]
+    print(f"timing mesh server: {s['lines']} lines in {s['datagrams']} "
+          f"datagrams to drain() in {s['ingest_s']:.3f} s "
+          f"({s['lines_per_s']:.0f} lines/s); S1 total "
+          f"{s['total_duration_ns']:.2f} ms, swap {s['swap_duration_ns']:.2f}"
+          f", merge {s['merge_duration_ns']:.2f}, assembly "
+          f"{s['assembly_duration_ns']:.2f}, gc {s['gc_ms']:.2f} | {card}")
+    g = m["global"]
+    print(f"timing mesh global: forward (local flush, gRPC, global drain) "
+          f"{g['forward_s']:.3f} s, global flush {g['flush_ms']:.2f} ms, gc "
+          f"{g['gc_ms']:.2f}, {g['rows']} rows | {card}")
+    for label, f in m["fetch"].items():
+        print(f"timing mesh {label}: device.fetch "
+              f"{', '.join(f'{ms:.3f}' for ms in f['fetch_ms'])} ms (turns "
+              f"1, 2), device.exec "
+              f"{', '.join(f'{ms:.3f}' for ms in f['exec_ms'])} ms, "
+              f"{f['bytes']} bytes fetched | {card}")
+
+
 # ------------------------------------------------------------- main
 
 # (name, source, the TPU kernel it replaces, the phase holding it
@@ -5621,6 +6224,7 @@ def main() -> int:
     durable_out = ph.run("durable", phase_durable, device)
     native_out = ph.run("native", phase_native, device)
     sinks_out = ph.run("sinks", phase_sinks, device)
+    mesh_out = ph.run("mesh", phase_mesh, device)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}",
               file=sys.stderr)
@@ -5729,8 +6333,9 @@ def main() -> int:
     print_durable_timings(durable_out, card)
     print_native_timings(native_out, card)
     print_sinks_timings(sinks_out, card)
+    print_mesh_timings(mesh_out, card)
     paths = [*main_out.values(), server, ssf_out, glob_out, fleet_out,
-             durable_out, native_out, sinks_out]
+             durable_out, native_out, sinks_out, mesh_out]
     kernels = []
     for name, source, replaces, phase, timed in KERNELS:
         t = timing[timed]

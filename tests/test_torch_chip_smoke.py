@@ -1,4 +1,4 @@
-"""chip_smoke.py's phases 4-12 rehearsed on the CPU at small shapes.
+"""chip_smoke.py's phases 2 and 4-14 rehearsed on the CPU at small shapes.
 
 On the CPU every kernel wrapper runs its plain version, so these show
 that the script's cases, checks, timings and reports run end to end and
@@ -6,6 +6,7 @@ hold the port to numpy truth; the kernels themselves are held against
 their plain versions only on the card (`python3 chip_smoke.py`).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,12 +51,26 @@ def test_phase_main_times_set_ingest(path):
     assert all(n == 0 for n in out["launches"].values())
 
 
+def test_phase_compress_holds_the_merge_widths():
+    """Phase 2's cases at small shapes, the mesh's merged compress among
+    them: an empty prefix and D replicas' compressed rows as the buffer,
+    at B = 2C and 8C, every row bit for bit (the plain version on both
+    sides here; the kernel on the card)."""
+    out = cs.phase_compress(CPU, K=64, C=32, B=32, merge=((16, 2), (8, 8)))
+    assert set(out) == {"serving", "overflow_clip", "merge_B64",
+                        "merge_B256", "max_abs_err"}
+    assert out["merge_B64"]["rows_bitwise_equal"] == 16
+    assert out["merge_B256"]["B"] == 256 and out["merge_B256"]["sr02_kernel"]
+
+
 def test_phase_timing_reports_both_insert_shapes_and_routes():
     routes = ({"set_slots": 64, "batch_size": 256, "histogram_slots": 64,
                "counter_slots": 8, "gauge_slots": 8}, 8, 600, 1)
     out = cs.phase_timing(CPU, K=64, C=32, B=32, KS=16, m=256, mu=256,
                           n=4096, n_landing=8192, reps=(2, 1, 2),
-                          routes=routes)
+                          routes=routes, merge=(16, 2))
+    assert out["compress_merge"]["shape"] == [16, 32, 64]
+    assert out["compress_merge"]["bound_ms"] > 0
     assert out["ull_insert"]["shape"] == [16, 256, 4096]
     assert out["ull_insert_landing"]["shape"] == [16, 256, 8192]
     assert out["ull_insert_one_word"]["shape"] == [16, 256, 8192]
@@ -554,3 +569,97 @@ def test_phase_sinks_rehearsal(monkeypatch):
     assert out["fanout_ms"] > 0
     assert all(v < 10 for v in out["stop_s"].values())
     cs.print_sinks_timings(out, "cpu")
+
+
+# phase 14 at small shapes: a 2 x 4 grid of the CPU, interval A scaled
+# as PLAN's (its histogram keys under the incremental threshold of the
+# single-device engines of (d)), phase 7's rehearsal traffic for the
+# server, and a small forwarded interval for the global
+MESH_CFG = {"histogram_slots": 2048, "counter_slots": 512,
+            "gauge_slots": 512, "set_slots": 64, "batch_size": 256}
+MESH_SRV = {"tpu_histogram_slots": 1024, "tpu_counter_slots": 256,
+            "tpu_gauge_slots": 256, "tpu_set_slots": 64,
+            "tpu_batch_size": 256}
+MESH_SRV_PLAN = {"timers": (300, 10), "counters": (100, 4), "gauges": 100,
+                 "sets": (20, 100), "checks": 10, "events": 3}
+MESH_GLOBAL = {"timers": (200, 25), "counters": (100, 4), "gauges": 100,
+               "sets": (20, 100)}
+
+
+def test_phase_mesh_rehearsal(monkeypatch):
+    """Phase 14 at small widths on the CPU: the mesh engine through its
+    routing and straight through MeshEngine.ingest on both dp rows, the
+    mesh server, the mesh global behind a forwarding local, and the fetch
+    modes, each against numpy truth or sync; the launches of each step
+    (the wrappers' plain calls counted) equal MESH_LAUNCHES."""
+    _count_plain_calls(monkeypatch)
+    out = cs.phase_mesh(CPU, cfg_kw=MESH_CFG, plan={"A": PLAN["A"]},
+                        srv_cfg_kw=MESH_SRV, srv_plan=MESH_SRV_PLAN,
+                        glob_plan=MESH_GLOBAL)
+    assert out["launches_by_step"] == cs.MESH_LAUNCHES
+    assert out["grid"] == [cs.MESH_DP, cs.MESH_SHARDS]
+    for arm in ("engine", "direct"):
+        assert out["steps"][f"{arm} A ingest"]["samples"] == \
+            cs.samples_of(cs.build_interval(np.random.default_rng(14),
+                                            PLAN["A"], "A"))
+        assert out["steps"][f"{arm} A flush"]["rows"] > 0
+        assert out["steps"][f"{arm} empty flush"]["rows"] == 0
+    assert out["server"]["lines"] == 3000 + 400 + 100 + 2000 + 10 + 3 + 1
+    assert out["global"]["rows"] == 200 * 6 + 100 + 100 + 20
+    assert list(out["fetch"]) == [
+        f"fetch {m}{' f16' if f16 else ''}" for m, f16 in cs.FETCH_CASES]
+    for label, f in out["fetch"].items():
+        assert f["bytes"] > 0 and len(f["fetch_ms"]) == 2, label
+        assert all(ms >= 0 for ms in f["fetch_ms"] + f["exec_ms"]), label
+    assert out["fetch"]["fetch sync f16"]["bytes"] \
+        < out["fetch"]["fetch sync"]["bytes"]
+    cs.print_mesh_timings(out, "cpu")
+
+
+def test_mesh_launch_table_follows_the_grid():
+    """MESH_LAUNCHES is the grid's arithmetic: S * (D + 1) compresses and
+    S hll_stats a mesh flush (a 1 x 1 grid one compress: the
+    single-device body); the server's and the global's 1 x 8 grid 2 x 8
+    and 8; each single-device engine a probe and its first flush's two
+    compresses and two hll_stats, the fetch cases in two turns."""
+    t = cs.MESH_LAUNCHES
+    assert t["engine A flush"] == cs._launch_row(compress=12, hll_stats=4)
+    assert t["direct empty flush"] == t["engine A flush"]
+    assert t["server S1"] == cs._launch_row(compress=16, hll_stats=8)
+    assert t["global start"] == cs._launch_row(compress=19, hll_stats=10)
+    assert cs._mesh_launches(1, 1, 1)["engine A flush"] == \
+        cs._launch_row(compress=1, hll_stats=1)
+    names = {k[0] for k in cs.KERNELS}
+    assert all(set(step) == names for step in t.values())
+    assert sum(step["probe"] for step in t.values()) == 1 + 1 + 1 + 1 + 2 + 10
+    assert [k for k in t if k.startswith("fetch")] == [
+        f"fetch {m}{' f16' if f16 else ''} turn {n}"
+        for n, (m, f16) in cs.fetch_turns()]
+
+
+def test_mesh_cards_rehearsal():
+    """mesh_cards.py's turns on the CPU: the 2 x 4 grid "on one card" and
+    "round-robin over four cards" (every entry the CPU here) in turns,
+    rows against truth and bit for bit across turns, then a mesh server;
+    its main() refuses to run without two cards."""
+    import subprocess
+    import sys
+
+    import mesh_cards
+    cpus = [torch.device("cpu")] * 4
+    assert mesh_cards.layouts(cpus, 4) == {
+        "one card": cpus[:1] * 8, "4 cards": cpus * 2}
+    recs = mesh_cards.run_layouts(cpus, 4, cfg_kw=MESH_CFG,
+                                  plan=PLAN["A"])
+    assert [(r["layout"], r["arm"]) for r in recs] == [
+        (lay, arm) for lay in ("one card", "4 cards", "4 cards",
+                               "one card")
+        for arm in ("engine", "direct")]
+    assert all(r["flush_ms"] > 0 and r["samples_per_s"] > 0 for r in recs)
+    srv = mesh_cards.run_server(CPU, cfg_kw=MESH_SRV, plan=MESH_SRV_PLAN)
+    assert srv["shard_devices"] == ["cpu"] * 8 and srv["S1_ms"] > 0
+    if not torch.cuda.is_available():
+        out = subprocess.run([sys.executable, "mesh_cards.py"],
+                             cwd=cs.ROOT, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode != 0 and '"ok"' not in out.stdout

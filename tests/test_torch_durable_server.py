@@ -1013,9 +1013,10 @@ def test_refused_keys_lost_exactly_the_durability_rows():
     assert "history_retention_generations" not in keys
     assert not any("item 11" in item for _k, _f, item in
                    tserver.REFUSED_KEYS)
-    # native_ingest (item 13) and the network sinks (item 9b.2) are
-    # served too: only items 14 and 16 are left
-    assert len(keys) == 3
+    # native_ingest (item 13), the network sinks (item 9b.2), several
+    # devices (item 14) and the fetch modes (item 16) are served too:
+    # nothing is left
+    assert len(keys) == 0
 
 
 def test_durable_keys_build_the_journals(tmp_path):

@@ -275,8 +275,23 @@ def test_bank_init_requires_a_device(module):
     {"flush_fetch": "staged"}, {"flush_fetch_f16": True},
     {"flush_fetch": "host"}, {"flush_fetch": "async"}])
 def test_features_outside_the_slice_are_refused(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.EngineConfig(**override)
+    """The fetch modes (ROADMAP item 16) are served now: each constructs,
+    and an engine under it flushes the rows a sync engine flushes (f16
+    within its wire rounding; tests/test_torch_flush_fetch.py holds each
+    mode against the JAX package). Only an unknown mode is refused."""
+    ecfg = tpipe.EngineConfig(**CFG, **override)
+    eng = tpipe.AggregationEngine(ecfg, device="cpu")
+    ref = tpipe.AggregationEngine(tpipe.EngineConfig(**CFG), device="cpu")
+    for e in (eng, ref):
+        for ln in (b"t.x:1.5|ms", b"t.x:2.5|ms", b"c.x:3|c"):
+            e.process(t_parse(ln))
+    got = {m.name: m.value for m in eng.flush(timestamp=1).metrics}
+    want = {m.name: m.value for m in ref.flush(timestamp=1).metrics}
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, err_msg=k)
+    with pytest.raises(ValueError, match="flush_fetch"):
+        tpipe.EngineConfig(flush_fetch="eventually")
 
 
 @pytest.mark.parametrize("flag,server_key,value", [

@@ -1,6 +1,7 @@
 """The port stands apart from the JAX package.
 
-Importing every module of veneur_tpu_torch, and chip_smoke.py, pulls in
+Importing every module of veneur_tpu_torch, chip_smoke.py and
+mesh_cards.py pulls in
 neither jax nor any veneur_tpu module (checked in a fresh interpreter).
 Only the generated `*_pb2` modules and `cluster/wire.py`, which turns
 forward exports into metricpb bytes, import google.protobuf at module
@@ -37,6 +38,7 @@ for name in names:
     if not name.endswith("_pb2") and name != "veneur_tpu_torch.cluster.wire":
         importlib.import_module(name)
 import chip_smoke
+import mesh_cards
 absent = sorted(m for m in sys.modules
                 if m in ("yaml", "grpc", "kafka", "boto3") or m.startswith(
                     ("yaml.", "grpc.", "google.protobuf", "kafka.",
@@ -134,6 +136,12 @@ SINK_PATH = ("veneur_tpu_torch.sinks.datadog",
              "veneur_tpu_torch.sinks.prometheus",
              "veneur_tpu_torch.utils.sentry",
              "veneur_tpu_torch.cli.prometheus")
+
+
+# the multi-device engine: each must be among the modules imported above
+PARALLEL_PATH = ("veneur_tpu_torch.parallel",
+                 "veneur_tpu_torch.parallel.mesh",
+                 "veneur_tpu_torch.parallel.engine")
 
 
 # durability and /query: each must be among the modules imported above
@@ -236,6 +244,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert set(NETWORK_PATH) <= set(names)
     assert set(DURABILITY_PATH) <= set(names)
     assert set(SINK_PATH) <= set(names)
+    assert set(PARALLEL_PATH) <= set(names)
     assert bad == "", f"JAX-side modules imported: {bad}"
     assert absent == "", f"yaml/protobuf/grpc/kafka/boto3 imported: {absent}"
 
@@ -269,6 +278,35 @@ def test_durability_imports_no_jax_and_protobuf_only_in_functions():
     assert before == "", f"protobuf/grpc imported at module level: {before}"
     assert bad == "", f"JAX-side modules imported: {bad}"
     assert int(after) > 0          # the import-op codec loads it itself
+
+
+def test_parallel_names_no_jax_no_reference_and_no_process_group():
+    """Every module of veneur_tpu_torch/parallel/ (walked from the
+    package directory) imports neither jax nor any veneur_tpu module and
+    never uses torch.distributed: the grid is one process's devices.
+    (`import torch` loads torch.distributed itself, so the check reads
+    the sources' imports and attributes, not sys.modules.)"""
+    import ast
+    pkg = os.path.join(ROOT, "veneur_tpu_torch", "parallel")
+    files = sorted(f for f in os.listdir(pkg) if f.endswith(".py"))
+    assert files == ["__init__.py", "engine.py", "mesh.py"]
+    for f in files:
+        src = open(os.path.join(pkg, f)).read()
+        for node in ast.walk(ast.parse(src)):
+            if isinstance(node, ast.Attribute):
+                assert not (node.attr == "distributed"
+                            and isinstance(node.value, ast.Name)
+                            and node.value.id == "torch"), f
+                continue
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for m in mods:
+                assert not m.startswith(("jax", "veneur_tpu",
+                                         "torch.distributed")), (f, m)
 
 
 def test_http_api_no_longer_answers_not_ported():

@@ -380,15 +380,51 @@ def test_refused_config_keys(key, value, item):
     assert key in str(e.value) and "ROADMAP" in str(e.value)
 
 
+@pytest.mark.parametrize("key,value", [
+    ("tpu_num_devices", 2), ("tpu_flush_fetch", "staged"),
+    ("tpu_flush_fetch_f16", True)])
+def test_formerly_refused_keys_are_served(key, value):
+    """The three keys ROADMAP items 14 and 16 took out of REFUSED_KEYS:
+    tpu_num_devices 2 builds one MeshAggregationEngine over a 1 x 2 grid,
+    and each fetch setting reaches the engine and flushes the rows a sync
+    server flushes (count exact; f16 quantiles within its rounding)."""
+    rows = {}
+    for k, v in ((key, value), (key, getattr(Config(), key))):
+        cap = CaptureMetricSink()
+        srv = Server(_small(interval="3600s", **{k: v}), sinks=[cap])
+        eng = srv.engines[0]
+        if k == "tpu_num_devices" and v == 2:
+            assert type(eng).__name__ == "MeshAggregationEngine"
+            assert len(srv.engines) == 1
+            assert eng.me.mesh.shape == {"dp": 1, "shard": 2}
+        elif k != "tpu_num_devices":
+            assert getattr(eng.cfg, k[len("tpu_"):]) == v
+        srv.start()
+        try:
+            srv.handle_packet(b"f.t:1.5|ms\nf.t:2.5|ms\nf.c:3|c")
+            assert srv.drain()
+            srv.flush_once(timestamp=5)
+            assert cap.wait_for_flush(1)
+        finally:
+            srv.stop()
+        rows[v] = {m.name: m.value for m in cap.all_metrics
+                   if m.name.startswith("f.")}
+    got, want = rows[value], rows[getattr(Config(), key)]
+    assert got.keys() == want.keys() and got["f.t.count"] == 2.0
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-3,
+                                   err_msg=name)
+
+
 def test_refused_keys_name_only_items_14_and_16():
-    refused = {k: item for k, _, item in REFUSED_KEYS}
-    assert set(refused) == {"tpu_num_devices", "tpu_flush_fetch",
-                            "tpu_flush_fetch_f16"}
-    assert all(item.startswith(("item 14", "item 16"))
-               for item in refused.values())
-    assert not (set(_NETWORK_KEYS) | {
-        "ssf_listen_addresses", "overload_defense_enabled",
-        "enable_profiling", "debug_flush_profile"}) & set(refused)
+    """Items 14 and 16 were the last keys in REFUSED_KEYS; both are
+    served now, so the table is empty and no served key is refused."""
+    assert REFUSED_KEYS == ()
+    for key in (set(_NETWORK_KEYS) | {
+            "ssf_listen_addresses", "overload_defense_enabled",
+            "enable_profiling", "debug_flush_profile", "tpu_num_devices",
+            "tpu_flush_fetch", "tpu_flush_fetch_f16"}):
+        assert hasattr(Config(), key)
 
 
 # the network sinks' keys (ROADMAP item 9b.2), each with the keys it

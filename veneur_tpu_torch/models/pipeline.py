@@ -60,13 +60,22 @@ Two tiers, as in the JAX package (flusher.go semantics):
 A durable global checkpoints its engines at each flush boundary
 (`checkpoint_state`: the live banks' dirty rows, gathered on the device)
 and a restarted one rebuilds them (`restore_checkpoint`); the records'
-bytes are the JAX package's (durability/records.py). The relayed-backend
-fetch modes are refused by EngineConfig (ROADMAP queue A, item 16). The
-server's admission controller attaches through `attach_admission`.
+bytes are the JAX package's (durability/records.py). The server's
+admission controller attaches through `attach_admission`.
+
+The flush's fetch takes one of the JAX package's four modes
+(`flush_fetch`, fetch_flush_outputs): "sync" (`.cpu()` a leaf at a
+time), "staged" (a copy on the device first), "host" (non-blocking copies
+into pinned host buffers kept per shape, one synchronize; "staged" on a
+CPU engine) and "async" (the same into fresh pinned buffers), each
+optionally compact (`flush_fetch_f16`: quantiles and inexact aggregates
+as f16, the f32 twins and 2Sum lo terms fetched only when a sentinel asks).
+The multi-device engine (parallel/engine.py) subclasses this one.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass, field as dc_field
@@ -82,6 +91,10 @@ from ..ops import scalar
 from ..utils import hashing
 from .worker import FOLD_SLOT, KeyInterner
 
+logger = logging.getLogger(__name__)
+
+_INF_F = float("inf")
+
 # Widest per-slot centroid pile the import landing hands to one
 # cluster_rows call; wider (untrusted) forwarded piles are clustered in
 # chunks of this size first.
@@ -96,13 +109,32 @@ _IMPORT_STAGE_DIGESTS = 8192
 _IMPORT_STAGE_SETS = 256
 
 
-def _precluster_k1(v, w, n_points):
+def _precluster_k1(v, w, n_points, keep_extremes=False):
     """Sort one hot slot's (value, weight) samples and cluster them into
     <= n_points weighted points over k1-spaced (tail-dense) bucket edges.
-    Weighted sum and count are exactly preserved. Returns (means f64[n],
-    weights f64[n])."""
+    Weighted sum and count are exactly preserved; with `keep_extremes`
+    the true min and max survive as singleton points (the mesh engine's
+    sidestep, which has no separate exact-stats merge). Returns (means
+    f64[n], weights f64[n])."""
     order = np.argsort(v, kind="stable")
     v, w = v[order], w[order]
+    if keep_extremes:
+        if len(v) <= 2 or n_points <= 3:
+            return v, w  # nothing (or no room) to cluster between ends
+        nb = n_points - 2
+        qi = (np.sin(np.pi * np.arange(nb + 1) / nb - np.pi / 2)
+              + 1.0) / 2.0
+        edges = np.unique(
+            np.floor(1 + qi * (len(v) - 2)).astype(np.int64))
+        edges = edges[(edges >= 1) & (edges < len(v) - 1)]
+        if edges.size == 0:
+            edges = np.array([1], np.int64)
+        wsum = np.add.reduceat(w[1:-1], edges - 1)
+        vsum = np.add.reduceat((v * w)[1:-1], edges - 1)
+        keep = wsum > 0
+        return (np.concatenate([[v[0]], vsum[keep] / wsum[keep],
+                                [v[-1]]]),
+                np.concatenate([[w[0]], wsum[keep], [w[-1]]]))
     nb = max(1, n_points)
     qi = (np.sin(np.pi * np.arange(nb + 1) / nb - np.pi / 2) + 1.0) / 2.0
     edges = np.unique(np.floor(qi * len(v)).astype(np.int64))
@@ -113,7 +145,14 @@ def _precluster_k1(v, w, n_points):
     return vsum[keep] / wsum[keep], wsum[keep]
 
 
-def _flush_program_body(heng, seng, agg_emit, fwd_out=False):
+def _absmax(t):
+    """max |t| as a 0-d f32 tensor (0 for an empty tensor)."""
+    if t.numel() == 0:
+        return t.new_zeros((), dtype=torch.float32)
+    return t.abs().max().float()
+
+
+def _flush_program_body(heng, seng, agg_emit, fwd_out=False, compact=False):
     """The flush computation — compress + quantiles + the configured
     aggregates + counter/gauge/set finalization — as a function of
     (hb, cb, gb, sb, qs). The full path and the incremental path run this
@@ -134,28 +173,72 @@ def _flush_program_body(heng, seng, agg_emit, fwd_out=False):
                          of the estimate turns it into s_est)
       h_* / s_regs       the raw forward-export state (fwd_out only): the
                          engine's forward leaves and the set registers
+
+    `compact=True` (flush_fetch_f16) replaces `q` and `aggcols` with the
+    JAX package's half-width wire encoding:
+      q16/lp16 f16        the quantiles and the inexact aggregate columns
+      aggcols_hp          the count/sum hi columns, f32 (exactness)
+      overflow_mag        max |value| under q16/lp16: the host fetches
+                          the f32 twins when it reaches f16's saturation
+      tiny_mag            the least nonzero |value|: the twins are
+                          fetched too when it is below f16's min normal
+      lo_mag              max |2Sum lo|: lo_count/lo_sum are fetched only
+                          when it is nonzero
+      q32/lp32, lo_*      the full-precision twins, left on the device
+                          unless a sentinel asks for them
+                          (fetch_flush_outputs)
     """
     def program(hb, cb, gb, sb, qs):
         hb = heng.compress(hb)
         agg = heng.aggregates(hb)
-        out = {"q": heng.quantile(hb, qs),
-               "c_hi": cb.hi, "c_lo": cb.lo,
+        q = heng.quantile(hb, qs)
+        out = {"c_hi": cb.hi, "c_lo": cb.lo,
                "g_value": gb.value, "g_seq": gb.seq}
         # the device half of the set estimate; the host half
         # (estimate_finalize) runs on the fetched arrays
         out.update(seng.estimate_device(sb))
-        cols = []
+        cols, hp_cols, lp_cols, lo_terms = [], [], [], []
         for a in agg_emit:
             if a == "count":
                 out["lo_count"] = hb.count_lo
+                hp_cols.append(hb.count)
+                lo_terms.append(hb.count_lo)
                 cols.append(hb.count)
             elif a == "sum":
                 out["lo_sum"] = hb.vsum_lo
+                hp_cols.append(hb.vsum)
+                lo_terms.append(hb.vsum_lo)
                 cols.append(hb.vsum)
             else:
+                lp_cols.append(agg[a])
                 cols.append(agg[a])
-        if cols:
-            out["aggcols"] = torch.stack(cols, dim=1)
+        if compact:
+            out["q16"] = q.half()
+            out["q32"] = q
+            srcs = [q]
+            if hp_cols:
+                out["aggcols_hp"] = torch.stack(hp_cols, dim=1)
+            if lp_cols:
+                lp = torch.stack(lp_cols, dim=1)
+                out["lp16"] = lp.half()
+                out["lp32"] = lp
+                srcs.append(lp)
+            out["overflow_mag"] = torch.stack(
+                [_absmax(t) for t in srcs]).max()
+            # the least nonzero magnitude: below f16's min normal a value
+            # loses relative precision on the wire
+            out["tiny_mag"] = torch.stack([
+                torch.where(t == 0, torch.full_like(t, _INF_F),
+                            t.abs()).min() if t.numel()
+                else t.new_full((), _INF_F)
+                for t in srcs]).min()
+            out["lo_mag"] = (torch.stack([_absmax(t) for t in lo_terms])
+                             .max() if lo_terms
+                             else q.new_zeros((), dtype=torch.float32))
+        else:
+            out["q"] = q
+            if cols:
+                out["aggcols"] = torch.stack(cols, dim=1)
         if "count" not in agg_emit:
             out["cnt"] = agg["count"]
         if fwd_out:
@@ -199,6 +282,112 @@ def _out_bank_kind(key: str) -> int:
     if key.startswith("s_"):
         return 3
     return 0
+
+
+# the flush_fetch modes (EngineConfig.flush_fetch)
+FETCH_MODES = ("sync", "staged", "host", "async")
+
+# compact-mode outputs that stay on the device unless their sentinel asks
+# for them: the full-precision twins and the 2Sum lo terms
+_LAZY_KEYS = ("q32", "lp32", "lo_count", "lo_sum")
+_F16_SAT = 61440.0      # |x| from here on rounds into f16's overflow zone
+_F16_TINY = 2.0 ** -14  # f16's min normal: below it values are subnormal
+
+
+def _fetch_leaves(out: dict, mode: str, pinned: dict | None) -> dict:
+    """Move a flat dict of tensors to host numpy arrays under one fetch
+    mode. "sync": `.cpu()` a leaf at a time. "staged": copy the leaves on
+    the device first, then fetch the copies. "host": a non-blocking copy
+    of each leaf into a pinned host buffer kept in `pinned` (one per key
+    and shape), then one synchronize; the arrays returned are copied out
+    of the buffers, which the next fetch overwrites. "async": the same
+    into fresh pinned buffers. A leaf on the CPU is taken as it is under
+    every mode (there is no transfer to stage)."""
+    if mode == "staged":
+        out = {k: v.clone() for k, v in out.items()}
+    if mode in ("sync", "staged"):
+        return {k: v.cpu().numpy() for k, v in out.items()}
+    host, bufs, devices = {}, {}, set()
+    for k, v in out.items():
+        if v.is_cpu:
+            host[k] = v.numpy()
+            continue
+        if mode == "host":
+            key = (k, tuple(v.shape), v.dtype)
+            buf = pinned.get(key)
+            if buf is None:
+                buf = pinned[key] = torch.empty(
+                    v.shape, dtype=v.dtype, pin_memory=True)
+        else:
+            buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        buf.copy_(v, non_blocking=True)
+        bufs[k] = buf
+        devices.add(v.device)
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    for k, buf in bufs.items():
+        host[k] = buf.numpy().copy() if mode == "host" else buf.numpy()
+    return host
+
+
+def fetch_flush_outputs(out: dict, mode: str, pinned: dict | None = None):
+    """The flush outputs on the host under a flush_fetch mode — the one
+    definition every engine's fetch goes through. A compact (f16) output
+    set leaves its full-precision twins and 2Sum lo terms on the device
+    and fetches them in a second, plain transfer only when its sentinel
+    scalars ask: nonzero lo terms, or a value in f16's saturation zone or
+    below its min normal."""
+    lazy = {}
+    if "lo_mag" in out:
+        lazy = {k: out[k] for k in _LAZY_KEYS if k in out}
+        out = {k: v for k, v in out.items() if k not in lazy}
+    host = _fetch_leaves(out, mode, pinned)
+    if lazy:
+        need = []
+        if float(host["lo_mag"]) != 0.0:
+            need += [k for k in ("lo_count", "lo_sum") if k in lazy]
+        if (float(host["overflow_mag"]) >= _F16_SAT
+                or float(host["tiny_mag"]) < _F16_TINY):
+            need += [k for k in ("q32", "lp32") if k in lazy]
+        if need:
+            host.update(_fetch_leaves({k: lazy[k] for k in need}, "sync",
+                                      None))
+    return host
+
+
+def decompact_flush_host(host: dict, agg_emit: tuple) -> dict:
+    """Rebuild the standard host contract (q [K, P], aggcols [K, A],
+    lo_*) from a compact (f16) fetch, so that assembly is one
+    implementation for both wire modes; a standard fetch passes through
+    unchanged."""
+    if "lo_mag" not in host:
+        return host
+    q = host.pop("q32", None)
+    q16 = host.pop("q16")
+    host["q"] = (np.asarray(q16, np.float32) if q is None
+                 else np.asarray(q))
+    lp = host.pop("lp32", None)
+    lp16 = host.pop("lp16", None)
+    if lp is None and lp16 is not None:
+        lp = np.asarray(lp16, np.float32)
+    hp = host.pop("aggcols_hp", None)
+    if agg_emit:
+        hi = li = 0
+        cols = []
+        for a in agg_emit:
+            if a in ("count", "sum"):
+                cols.append(np.asarray(hp[:, hi], np.float32))
+                hi += 1
+            else:
+                cols.append(np.asarray(lp[:, li], np.float32))
+                li += 1
+        host["aggcols"] = np.stack(cols, axis=1)
+    k = host["q"].shape[0]
+    if "count" in agg_emit and "lo_count" not in host:
+        host["lo_count"] = np.zeros(k, np.float32)
+    if "sum" in agg_emit and "lo_sum" not in host:
+        host["lo_sum"] = np.zeros(k, np.float32)
+    return host
 
 
 class ImportFoldReroute(Exception):
@@ -246,11 +435,10 @@ class EngineConfig:
     flush_incremental_threshold: float = 0.75
 
     def __post_init__(self):
-        if self.flush_fetch != "sync" or self.flush_fetch_f16:
-            raise _not_ported(
-                f"flush_fetch={self.flush_fetch!r} "
-                f"flush_fetch_f16={self.flush_fetch_f16!r}",
-                "item 16, flush fetch modes")
+        if self.flush_fetch not in FETCH_MODES:
+            raise ValueError(
+                f"flush_fetch={self.flush_fetch!r}: must be "
+                f"{'/'.join(FETCH_MODES)}")
         if self.histogram_backend not in sketches.HISTOGRAM_BACKENDS:
             raise ValueError(
                 f"histogram_backend must be one of "
@@ -403,31 +591,42 @@ class _SetLanding:
         return out
 
 
+def require_device(device, who: str) -> None:
+    """Raise unless `device` can run the engine: a CUDA device needs a
+    card, on which the kernel library is built (on first use) and the
+    probe kernel must give the right result."""
+    if device.type != "cuda":
+        return
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: no CUDA device is available; pass device='cpu' to "
+            "run on the CPU")
+    if not kprobe.probe(device):
+        raise RuntimeError(
+            f"{who}: the probe kernel gave a wrong result on {device}")
+
+
 class AggregationEngine:
+    # the mesh engine (parallel/engine.py) turns both off: its sharded
+    # banks carry no dirty bitmaps, and its flush lands everything staged
+    # under the lock before the swap
+    _incremental_capable = True
+    _double_buffer_capable = True
+
     def __init__(self, config: EngineConfig | None = None, device=None):
         """`device` defaults to "cuda"; with no card present that raises —
         the engine never carries on on the CPU unless asked to. On the
         card the kernel library is built (on first use) and the probe
         kernel must run before any bank is made."""
         self.cfg = cfg = config or EngineConfig()
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "AggregationEngine: no CUDA device is available; pass "
-                    "device='cpu' to run on the CPU")
-            if not kprobe.probe(self.device):
-                raise RuntimeError(
-                    f"AggregationEngine: the probe kernel gave a wrong "
-                    f"result on {self.device}")
         # One ingest thread owns process(); flush() may run from another
         # thread. Ingest holds the lock per item; flush holds it only
         # across the swap and the bookkeeping.
         self.lock = threading.Lock()
         self._heng = sketches.histogram_engine(cfg)
         self._seng = sketches.set_engine(cfg)
-        (self.histo_bank, self.counter_bank,
-         self.gauge_bank, self.set_bank) = self._fresh_banks()
+        self._setup_device(device)
+        self._setup_fetch()
 
         self.histo_keys = KeyInterner(cfg.histogram_slots,
                                       cfg.idle_ttl_intervals)
@@ -476,7 +675,8 @@ class AggregationEngine:
         self._fwd_out = cfg.forward_enabled and not cfg.is_global
         self._program = _flush_program_body(self._heng, self._seng,
                                             tuple(self._agg_emit),
-                                            self._fwd_out)
+                                            self._fwd_out,
+                                            cfg.flush_fetch_f16)
         self._tags_cache: dict[str, list] = {}
         self._pres_bound = 4 * (cfg.histogram_slots + cfg.counter_slots
                                 + cfg.gauge_slots + cfg.set_slots)
@@ -495,7 +695,8 @@ class AggregationEngine:
         # bitmaps' second consumer: armed by the incremental flush here or
         # by the durable server; `_delta_threshold` is the dirty fraction
         # past which a checkpoint fetches whole leaves instead of a gather.
-        self._use_incremental = cfg.flush_incremental
+        self._use_incremental = (cfg.flush_incremental
+                                 and self._incremental_capable)
         self._dirty = None
         self._delta_threshold = 0.5
         if self._use_incremental:
@@ -518,6 +719,25 @@ class AggregationEngine:
         self._import_counter_acc: dict = {}   # slot -> host f64 sum
         self._import_gauge_acc: dict = {}     # slot -> last value
         self.last_import_op = 0
+
+    def _setup_device(self, device):
+        """Place the engine: its device and its live banks there."""
+        self.device = torch.device("cuda" if device is None else device)
+        require_device(self.device, "AggregationEngine")
+        (self.histo_bank, self.counter_bank,
+         self.gauge_bank, self.set_bank) = self._fresh_banks()
+
+    def _setup_fetch(self):
+        """Resolve the flush_fetch mode. "host" needs pinned host memory,
+        which a CPU engine has not: it logs the JAX package's warning and
+        fetches "staged"."""
+        self._fetch_mode = self.cfg.flush_fetch
+        self._pinned: dict = {}      # "host" mode's buffers, by key+shape
+        self._fetch_bytes = 0        # bytes fetched by the current flush
+        if self._fetch_mode == "host" and self.device.type != "cuda":
+            logger.warning("flush_fetch=host: backend lacks pinned_host "
+                           "memory; using staged")
+            self._fetch_mode = "staged"
 
     def _bank_sizes(self):
         cfg = self.cfg
@@ -1073,6 +1293,16 @@ class AggregationEngine:
             bank, self._tensor(slots, np.int32),
             self._tensor(np.stack([r for _, r in items]), np.uint8))
 
+    def _flush_import_scalars(self):
+        """Land the accumulated imported counters and gauges in the live
+        banks (the flush ordering without the double buffer)."""
+        counters, self._import_counter_acc = self._import_counter_acc, {}
+        gauges, self._import_gauge_acc = self._import_gauge_acc, {}
+        self.counter_bank, self.gauge_bank, self._gauge_seq = \
+            self._land_import_scalars(self.counter_bank, self.gauge_bank,
+                                      counters, gauges, self._dirty,
+                                      self._gauge_seq)
+
     def _land_import_scalars(self, cbank, gbank, counters, gauges, dirty,
                              gauge_seq):
         """Land the accumulated counter sums (one float64 value a slot)
@@ -1266,19 +1496,24 @@ class AggregationEngine:
             torch.cuda.synchronize(self.device)
 
     def _fetch(self, out: dict) -> dict:
-        """The flush's one device-to-host transfer, then the host half of
-        the set estimate (ULL's ML solve; nothing for HLL). Every fetch
-        of flush outputs — full, compact and the baseline rows — goes
-        through here, so all three carry the same keys."""
-        self._sync()
-        host = {k: v.cpu().numpy() for k, v in out.items()}
+        """The flush's device-to-host transfer under the flush_fetch mode
+        (fetch_flush_outputs), the compact encoding undone, then the host
+        half of the set estimate (ULL's ML solve; nothing for HLL). Every
+        fetch of flush outputs — full, incremental and the baseline rows
+        — goes through here, so all three carry the same keys."""
+        host = fetch_flush_outputs(out, self._fetch_mode, self._pinned)
+        self._fetch_bytes += sum(a.nbytes for a in host.values())
+        host = decompact_flush_host(host, tuple(self._agg_emit))
         self._seng.estimate_finalize(host)
         return host
 
     def _timed_fetch(self, out, t0, t1, phases) -> dict:
         """Fetch the flush body's outputs, stamping the JAX package's
         sync-mode phases: device.dispatch (t0-t1, the body's host calls),
-        device.exec (until the card is done) and device.fetch."""
+        device.exec (until the card is done) and device.fetch. Every fetch
+        mode stamps all three (the JAX package folds exec and fetch into
+        one `device` phase outside sync mode, where a host sync could cost
+        a relayed backend its executable; a card has no such cost)."""
         self._sync()
         t2 = time.monotonic_ns()
         host = self._fetch(out)
@@ -1453,23 +1688,34 @@ class AggregationEngine:
         fwd_out = self._fwd_out
         full_export = fwd_out and forward_kind != "delta"
         t_start = time.monotonic_ns()
+        double = self._double_buffer_capable
         with self.lock:
-            stages = {name: st.drain()
-                      for name, st in (("histo", self._histo_stage),
-                                       ("counter", self._counter_stage),
-                                       ("gauge", self._gauge_stage),
-                                       ("set", self._set_stage))
-                      if st.n}
-            imports = (self._import_centroids, self._import_sets,
-                       self._import_counter_acc, self._import_gauge_acc)
-            self._import_centroids = []
-            self._import_centroid_total = 0
-            self._import_sets = []
-            self._import_counter_acc = {}
-            self._import_gauge_acc = {}
-            retired_seq, self._gauge_seq = self._gauge_seq, 0
-            set_landing = self._set_landing
-            self._set_landing = _SetLanding(set_landing.capacity)
+            if double:
+                stages = {name: st.drain()
+                          for name, st in (("histo", self._histo_stage),
+                                           ("counter", self._counter_stage),
+                                           ("gauge", self._gauge_stage),
+                                           ("set", self._set_stage))
+                          if st.n}
+                imports = (self._import_centroids, self._import_sets,
+                           self._import_counter_acc,
+                           self._import_gauge_acc)
+                self._import_centroids = []
+                self._import_centroid_total = 0
+                self._import_sets = []
+                self._import_counter_acc = {}
+                self._import_gauge_acc = {}
+                retired_seq, self._gauge_seq = self._gauge_seq, 0
+                set_landing = self._set_landing
+                self._set_landing = _SetLanding(set_landing.capacity)
+            else:
+                # the mesh engine's ordering: everything staged lands in
+                # the live banks before they are swapped out
+                self.drain_all()
+                self._flush_import_centroids()
+                self._flush_import_sets()
+                self._flush_import_scalars()
+                self._gauge_seq = 0
             snap = self._swap_banks()
             dirty = self._retire_dirty()
             # the applied-op watermark at the swap: every op up to it is
@@ -1480,11 +1726,14 @@ class AggregationEngine:
         t_swap = time.monotonic_ns()
         # flight-recorder stamps (name, t0_ns, t1_ns) on the monotonic_ns
         # clock, returned in stats["phases"] for the server's phase tree
-        phases = [("swap", t_start, t_swap)]
-        snap = self._land_retired(snap, dirty, stages, set_landing,
-                                  imports, retired_seq)
-        t_drain = time.monotonic_ns()
-        phases.append(("drain", t_swap, t_drain))
+        if double:
+            phases = [("swap", t_start, t_swap)]
+            snap = self._land_retired(snap, dirty, stages, set_landing,
+                                      imports, retired_seq)
+            phases.append(("drain", t_swap, time.monotonic_ns()))
+        else:
+            phases = [("drain", t_start, t_swap)]
+        self._fetch_bytes = 0
         host = self._flush_device(snap, phases, dirty=dirty)
         t_device = time.monotonic_ns()
 
@@ -1520,6 +1769,8 @@ class AggregationEngine:
             "assembly_ns": t_end - t_device,
             "phases": phases,
             "flush_path": dict(self._last_flush_info),
+            # device-to-host bytes of the flush's fetches
+            "fetch_bytes": self._fetch_bytes,
             # what the export build shipped (a delta request degrades
             # to full without a bitmap or on a non-forwarding engine)
             "forward_kind": export.kind,

@@ -40,11 +40,13 @@ Threading model (the reference's, unchanged):
 The device is the caller's `device`, else "cpu" when
 `aggregation_backend: cpu`, else "cuda" — which raises where there is no
 card, as AggregationEngine does. With an SSF UDP listener the server
-traces its own flushes through it. Config keys this port cannot honour
-yet (several devices, the relayed-backend fetch modes) are refused at
-construction with NotImplementedError naming their ROADMAP item
-(`REFUSED_KEYS`), never ignored. The network sinks (Datadog, SignalFx,
-Kafka, New Relic, Prometheus, the span sinks), the S3 plugin and the
+traces its own flushes through it. With `tpu_num_devices` > 1 the one
+worker runs a MeshAggregationEngine (parallel/) over a 1 x n grid of
+shards, shard i on cuda:(i mod the number of cards). Pairings the
+reference itself fails in are refused at construction with
+NotImplementedError naming their ROADMAP entry, never ignored. The
+network sinks (Datadog, SignalFx, Kafka, New Relic, Prometheus, the span
+sinks), the S3 plugin and the
 sentry client are built from the config as the reference builds them.
 The forwarders, the import server, the falconer sink and their wire
 (grpc, google.protobuf) are imported only when the config needs them.
@@ -93,12 +95,10 @@ log = logging.getLogger("veneur_tpu_torch.server")
 _STOP = object()
 
 # (config key, refused when, ROADMAP queue A item): the keys whose value
-# this port cannot honour yet
-REFUSED_KEYS = (
-    ("tpu_num_devices", lambda v: v > 1, "item 14, multi-device engine"),
-    ("tpu_flush_fetch", lambda v: v != "sync", "item 16, flush fetch modes"),
-    ("tpu_flush_fetch_f16", bool, "item 16, flush fetch modes"),
-)
+# this port cannot honour yet — none since the multi-device engine and the
+# fetch modes (items 14 and 16); what it still refuses, the reference
+# refuses too (refuse_unported, the mesh engine's constructor)
+REFUSED_KEYS = ()
 
 
 def _fold_rewrite(pb, fr) -> int:
@@ -128,6 +128,15 @@ def refuse_unported(cfg: Config) -> None:
             "consul_forward_service_name) is refused by veneur_tpu_torch: "
             "the reference fails every flush of that pairing (ROADMAP "
             "C.11)")
+    if cfg.native_ingest and cfg.tpu_num_devices > 1 \
+            and cfg.native_pump_batch != cfg.tpu_batch_size:
+        # the reference's mesh engine has no pump-width warm-up: its
+        # server raises AttributeError ('_kern') out of start() whenever
+        # the pump's batch differs from the engine's
+        raise NotImplementedError(
+            "native_ingest with tpu_num_devices > 1 and native_pump_batch "
+            "!= tpu_batch_size is refused by veneur_tpu_torch: the "
+            "reference's start() fails in that pairing (ROADMAP C.15)")
     if cfg.tpu_fused_kernels == "off":
         raise NotImplementedError(
             "tpu_fused_kernels='off' is not supported by veneur_tpu_torch: "
@@ -153,8 +162,11 @@ class Server:
         self.hostname = cfg.hostname or (
             "" if cfg.omit_empty_hostname else socket.gethostname())
         # native ingest: the C++ bridge owns interning over ONE engine's
-        # slot space; its reader threads are the parallelism
-        n_workers = 1 if cfg.native_ingest else max(1, cfg.num_workers)
+        # slot space; its reader threads are the parallelism. A mesh
+        # engine likewise owns the whole slot space (sharded over devices)
+        self._mesh_mode = cfg.tpu_num_devices > 1
+        n_workers = (1 if cfg.native_ingest or self._mesh_mode
+                     else max(1, cfg.num_workers))
         ecfg_kw = dict(
             histogram_slots=max(256, cfg.tpu_histogram_slots // n_workers),
             counter_slots=max(128, cfg.tpu_counter_slots // n_workers),
@@ -172,6 +184,8 @@ class Server:
             percentiles=tuple(cfg.percentiles),
             aggregates=tuple(cfg.aggregates),
             idle_ttl_intervals=cfg.tpu_slot_idle_ttl_intervals,
+            flush_fetch=cfg.tpu_flush_fetch,
+            flush_fetch_f16=cfg.tpu_flush_fetch_f16,
             flush_incremental=cfg.tpu_flush_incremental,
             flush_incremental_threshold=cfg.tpu_flush_incremental_threshold,
             forward_enabled=bool(cfg.forward_address
@@ -180,9 +194,21 @@ class Server:
             is_global=cfg.is_global or bool(cfg.grpc_listen_addresses),
             hostname=self.hostname,
         )
-        self.engines = [AggregationEngine(EngineConfig(**ecfg_kw),
-                                          device=device)
-                        for _ in range(n_workers)]
+        if self._mesh_mode:
+            # ONE engine whose banks are sharded over a 1 x n grid: slot
+            # routing replaces worker sharding; shard i on cuda:(i mod the
+            # cards), all n on the CPU for the CPU backend (ROADMAP C.14).
+            # Forwarding and the non-default backends stay refused by the
+            # engine's constructor, as the reference's.
+            from .parallel.engine import MeshAggregationEngine
+            from .parallel.mesh import shard_devices
+            self.engines = [MeshAggregationEngine(
+                EngineConfig(**ecfg_kw),
+                devices=shard_devices(device, cfg.tpu_num_devices))]
+        else:
+            self.engines = [AggregationEngine(EngineConfig(**ecfg_kw),
+                                              device=device)
+                            for _ in range(n_workers)]
         self.device = self.engines[0].device
         self.worker_queues: list[queue.Queue] = [
             queue.Queue(maxsize=65536) for _ in range(n_workers)]
@@ -349,11 +375,13 @@ class Server:
         engine_journal = (cfg.durability_enabled
                           and cfg.durability_engine_snapshot
                           and (cfg.grpc_listen_addresses or cfg.is_global))
-        if engine_journal and self.native_bridge is not None:
+        if engine_journal and (self._mesh_mode
+                               or self.native_bridge is not None):
             log.warning(
-                "durability_engine_snapshot has no effect with "
-                "native_ingest (the native bridge owns the interner); "
-                "engine checkpointing disabled")
+                "durability_engine_snapshot has no effect with a "
+                "mesh engine or native_ingest (the %s owns the "
+                "banks/interner); engine checkpointing disabled",
+                "mesh" if self._mesh_mode else "native bridge")
         elif engine_journal:
             from .durability import EngineJournal
             self._engine_journal_armed = True
