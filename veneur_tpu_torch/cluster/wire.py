@@ -407,6 +407,8 @@ def _varint_block(vals: np.ndarray) -> bytes:
     cont = (np.arange(total) + 1) != np.repeat(ends, nbytes)
     out = (chunk | (cont.astype(np.uint64) << np.uint64(7))) \
         .astype(np.uint8)
+    # vlint: disable=DR02 reason=the q16 varint WIRE block (weight
+    # fixed-point bytes, not a bank leaf); single-homed here per WC01
     return out.tobytes()
 
 
@@ -457,6 +459,9 @@ def encode_q16_centroids(means, weights) -> bytes:
         q = np.zeros(n, np.uint16)
     qw = np.maximum(1, np.rint(weights * _Q16_WSCALE)).astype(np.uint64)
     return (_Q16_HEAD.pack(n, lo, hi)
+            # vlint: disable=DR02 reason=the q16 centroid WIRE row
+            # (deliberately lossy quantized means, not a bank leaf);
+            # single-homed here per WC01
             + q.astype("<u2").tobytes()
             + _varint_block(qw))
 
@@ -470,6 +475,8 @@ def decode_q16_centroids(data: bytes):
     off = _Q16_HEAD.size
     if len(data) < off + 2 * n:
         raise ValueError("truncated q16 mean block")
+    # vlint: disable=DR02 reason=inverse of the q16 wire row above —
+    # same single-homed wire codec, not a bank-leaf byte move
     q = np.frombuffer(data, "<u2", n, off).astype(np.float64)
     off += 2 * n
     weights = np.empty(n, np.float64)

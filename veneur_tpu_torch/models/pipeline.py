@@ -724,6 +724,8 @@ class AggregationEngine:
         """Place the engine: its device and its live banks there."""
         self.device = torch.device("cuda" if device is None else device)
         require_device(self.device, "AggregationEngine")
+        # vlint: disable=DS01 reason=initial fresh-bank build, not a
+        # data landing: fresh rows carry nothing to mark
         (self.histo_bank, self.counter_bank,
          self.gauge_bank, self.set_bank) = self._fresh_banks()
 
@@ -1074,6 +1076,9 @@ class AggregationEngine:
                        (self._set_stage, self._dispatch_sets)):
             if st.n:
                 fn()
+        # vlint: disable=DS01 reason=lands the set landing buffer,
+        # whose rows _buffer_sets marked as it appended them; the
+        # staged dispatches above mark in their landing cores
         self.set_bank = self._land_set_buffer(self.set_bank,
                                               self._set_landing)
 
@@ -1441,6 +1446,9 @@ class AggregationEngine:
     def _merge_import_scalars(self, bank, items):
         """The digests' exact min/max/sum/count/recip, merged by slot."""
         cols = np.array([it[3:8] for it in items], np.float32)
+        # vlint: disable=DS01 reason=a helper of _land_import_centroids
+        # and _land_imports_direct, which mark these slots (kind 0)
+        # before they call it
         return self._heng.merge_scalars(
             bank, self._tensor([it[0] for it in items], np.int32),
             *(self._tensor(cols[:, j], np.float32) for j in range(5)))
@@ -1478,6 +1486,8 @@ class AggregationEngine:
         fresh ones (the Worker.Flush map swap)."""
         snap = (self.histo_bank, self.counter_bank,
                 self.gauge_bank, self.set_bank)
+        # vlint: disable=DS01 reason=the fresh-bank swap, not a data
+        # landing; _retire_dirty hands the bitmaps over with it
         (self.histo_bank, self.counter_bank,
          self.gauge_bank, self.set_bank) = self._fresh_banks()
         return snap
@@ -1954,6 +1964,8 @@ class AggregationEngine:
         so its updates (already marked dirty) are in the rows."""
         from ..durability import records as drecords
         with self.lock:
+            # vlint: disable=DS01 reason=lands the set landing buffer, whose
+            # rows _buffer_sets marked as it appended them, before the cut
             self.set_bank = self._land_set_buffer(self.set_bank,
                                                   self._set_landing)
             banks: dict = {}

@@ -286,8 +286,11 @@ class MeshEngine:
             def psum(name):
                 return fold(torch.add, [getattr(h, name) for h in hbs])
             # the gathered centroids ride in the BUFFER of an empty-prefix
-            # bank (all-zero rows are trivially cluster-ordered); compress
-            # sorts them itself
+            # bank; compress sorts them itself
+            # vlint: disable=SR02 reason=mean/weight are all-zero rows
+            # (trivially cluster-ordered: no positive-weight entries),
+            # so the sorted-prefix invariant the merge-path compress
+            # depends on holds
             hb = TDigestBank(
                 mean=torch.zeros_like(h0.mean, device=own),
                 weight=torch.zeros_like(h0.weight, device=own),

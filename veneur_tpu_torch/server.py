@@ -1468,6 +1468,9 @@ class Server:
         sig = (tuple(marks),
                tuple(len(ki) for eng in self.engines
                      for _k, _a, ki in eng._bank_table()))
+        # vlint: disable=TH01 reason=flush-path-only state; flushes are
+        # serialized (one flusher thread, tests call flush_once synchronously)
+        # and readers (debug/health) tolerate staleness
         self._last_checkpoint_stats = (dirty, total)
         if not dirty and not staged_any \
                 and sig == self._last_checkpoint_sig:
@@ -1480,7 +1483,11 @@ class Server:
         tel.set_gauge(S, "durability.engine_snapshot_bytes", nbytes)
         tel.incr(S, "durability.engine_delta_skipped_piles",
                  total - dirty)
+        # vlint: disable=TH01 reason=flush-path-only state; flushes are
+        # serialized (one flusher thread, tests call flush_once synchronously)
         self._last_checkpoint_sig = sig
+        # vlint: disable=TH01 reason=flush-path-only state; debug-page readers
+        # tolerate staleness
         self._last_checkpoint_t = time.monotonic()
         with self._import_submit_lock:
             cut = self._ops_at_last_checkpoint
@@ -1601,7 +1608,11 @@ class Server:
                 self._history.append(close_ns,
                                      self._history_prev_close_ns,
                                      retired_wms, base_recs, op_recs)
+            # vlint: disable=TH01 reason=flush-path-only state; flushes are
+            # serialized (one flusher thread, tests call flush_once
+            # synchronously)
             self._history_baseline = (recs, marks, empty_next)
+            # vlint: disable=TH01 reason=flush-path-only state (above)
             self._history_prev_close_ns = close_ns
             hs = self._history.debug_state()
             tel.set_gauge(S, "history.generations", hs["generations"])
@@ -1612,9 +1623,14 @@ class Server:
                 "history generation seal failed; DISABLING the time-"
                 "travel tier for this process (aggregation and crash "
                 "recovery unaffected)")
+            # vlint: disable=TH01 reason=monotone one-way degrade on the
+            # flusher thread; readers (query path, debug page) tolerate either
+            # value across the flip
             self._history = None
             if self._query_tier is not None:
                 self._query_tier.close()
+                # vlint: disable=TH01 reason=same one-way degrade; the http
+                # wiring null-checks per request
                 self._query_tier = None
 
     def _serve_query(self, params: dict) -> dict:
@@ -1660,6 +1676,9 @@ class Server:
                     # a seq admitted during this tick may not be in the
                     # state it flushed (worker-queue residency)
                     marks = self._pending_watermarks
+                    # vlint: disable=TH01 reason=flush-path-only state; flushes
+                    # are serialized (one flusher thread, tests call flush_once
+                    # synchronously)
                     self._pending_watermarks = \
                         self.dedupe_ledger.max_admitted()
                     self._dedupe_journal.record(marks)
@@ -1674,6 +1693,10 @@ class Server:
                         self._dedupe_journal.close()
                     except Exception:
                         pass
+                    # vlint: disable=TH01 reason=flush-path-only state; flushes
+                    # are serialized (one flusher thread, tests call flush_once
+                    # synchronously) and stop() reads it only after the last
+                    # tick ended
                     self._dedupe_journal = None
         finally:
             if dtok is not None:
@@ -2175,6 +2198,9 @@ class Server:
             from torch.profiler import profile
             prof = profile(activities=self._profiler_activities())
             prof.start()
+            # vlint: disable=TH01 reason=flush-path-only state: only the flush
+            # that set _profile_active under _stats_lock starts a capture, and
+            # flushes are serialized
             self._profiler = prof
             log.info("debug/flush: torch profiler capture started -> %s",
                      self.cfg.debug_flush_profile_dir)
@@ -2195,6 +2221,8 @@ class Server:
         prof, self._profiler = self._profiler, None
         try:
             prof.stop()
+            # vlint: disable=TH01 reason=flush-path-only state, written by the
+            # capture's owner (above)
             self._profile_seq += 1
             d = self.cfg.debug_flush_profile_dir
             os.makedirs(d, exist_ok=True)
@@ -2620,6 +2648,9 @@ class Server:
         tel.incr(S, "ssf.error", delta("ssf_errors"))
         if eng_stats is not None:
             eng_stats["dropped_no_slot"] = delta("drops_no_slot")
+        # vlint: disable=TH01 reason=flush-path-only state; flushes are
+        # serialized (one flusher thread, tests call flush_once synchronously),
+        # so no concurrent writer exists
         self._last_bridge_stats = st
 
     def _fan_out(self, frameset, events, checks, tick=None, parent=-1):
@@ -2642,6 +2673,8 @@ class Server:
             t = threading.Thread(target=target, daemon=True,
                                  name=f"{key[0]}-{key[1]}")
             # register BEFORE start so stop()'s drain can never miss it
+            # vlint: disable=TH01 reason=flusher-thread-only map; stop() only
+            # reads it after _stop is set and the last tick ended
             self._sink_inflight[key] = t
             t.start()
 

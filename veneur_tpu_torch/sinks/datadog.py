@@ -121,6 +121,10 @@ class DatadogMetricSink(MetricSink):
         if len(self._tag_memo) >= 65536:
             self._tag_memo.clear()
         out = (host, device, tags)
+        # vlint: disable=TH01 reason=flush-path-only state: the server
+        # keeps one flush of a sink in flight (Server._fan_out skips a
+        # sink whose last flush runs), and flush/flush_frames are its
+        # two entries, never concurrent
         self._tag_memo[key] = out
         return out
 
