@@ -43,6 +43,15 @@ from ..models.worker import SlotInfo
 log = logging.getLogger(__name__)
 
 _BANKS = {"histo": 0, "counter": 1, "gauge": 2, "set": 3}
+# native/vtpu_ingest.cpp's RING_WAYS: a bank's ring is this many sub-rings
+# of ring_capacity / RING_WAYS + 1 samples, and each writer thread keeps
+# to one of them
+RING_WAYS = 8
+# the pump's span ring (the flight recorder's "pump" ring): a cycle that
+# moved samples, the samples it moved from each bank and the ns it waited
+# for the engine lock
+PUMP_FIELDS = ("histo", "counter", "gauge", "set", "lock_wait_ns")
+PUMP_SPANS = 1 << 16
 _MTYPE_NAMES = ["counter", "gauge", "timer", "histogram", "set"]
 
 P_METRIC, P_ERROR, P_OTHER = 0, 1, 2
@@ -544,11 +553,20 @@ class NativePump:
     Each landing's host-to-device copies and kernel launches run in the
     pump thread under the engine lock; the engine must have run its
     probe (and so built the kernel library) before the pump starts.
+
+    With `spans` (a flight recorder's SpanRing over PUMP_FIELDS) each
+    cycle that moved samples is stamped there, and the pump keeps the
+    counters the server drains each flush (`take_stats`): busy ns,
+    engine-lock wait ns, cycles, and the highest bank fill.
+    A bank's fill is what one drain of it moved before its ring came up
+    empty: its backlog at that moment, against `ring_samples`, what the
+    bank's rings hold for `writers` reader threads before they drop.
     """
 
     def __init__(self, bridge: NativeBridge, engine, views: dict,
                  slow_path, batch: int = 8192, idle_sleep: float = 0.002,
-                 ssf_slow_path=None):
+                 ssf_slow_path=None, ring_capacity: int = 1 << 20,
+                 writers: int = 1, spans=None):
         self.bridge = bridge
         self.engine = engine
         self.views = views
@@ -557,6 +575,16 @@ class NativePump:
         self.batch = batch
         self.idle_sleep = idle_sleep
         self.landed = 0     # samples landed in the engine, ever
+        self.ring_samples = (ring_capacity // RING_WAYS + 1) \
+            * max(1, min(writers, RING_WAYS))
+        self.spans = spans
+        # the stamped cycles' totals, ever (read by the flush)
+        self.busy_ns = 0
+        self.lock_wait_ns = 0
+        self.cycles = 0
+        self._peak_fill = 0
+        self._taken = (0, 0, 0)
+        self._stats_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         # pump_once runs in the pump thread and in Server.drain(); they
@@ -596,9 +624,7 @@ class NativePump:
     def pump_once(self) -> int:
         """One poll cycle across all banks; returns the items moved."""
         with self._pump_lock:
-            moved = 0
-            for bank in _BANKS:
-                moved += self._pump_bank(bank)
+            moved = self._pump_banks()
             for line in self.bridge.drain_other():
                 self.slow_path(line)
                 moved += 1
@@ -607,6 +633,41 @@ class NativePump:
                     self.ssf_slow_path(payload)
                     moved += 1
             return moved
+
+    def _pump_banks(self) -> int:
+        """The banks' part of a cycle, in _BANKS' order, stamped into the
+        span ring when there is one and the cycle moved samples."""
+        spans, eng = self.spans, self.engine
+        t0 = time.monotonic_ns()
+        w0 = 0 if spans is None else eng.lock_wait_ns
+        nh = self._pump_bank("histo")
+        nc = self._pump_bank("counter")
+        ng = self._pump_bank("gauge")
+        ns = self._pump_bank("set")
+        moved = nh + nc + ng + ns
+        if moved and spans is not None:
+            t1 = time.monotonic_ns()
+            wait = eng.lock_wait_ns - w0
+            spans.record(t0, t1, nh, nc, ng, ns, wait)
+            self.busy_ns += t1 - t0
+            self.lock_wait_ns += wait
+            self.cycles += 1
+            peak = max(nh, nc, ng, ns)
+            if peak > self._peak_fill:
+                with self._stats_lock:
+                    self._peak_fill = max(self._peak_fill, peak)
+        return moved
+
+    def take_stats(self) -> tuple:
+        """(busy ns, engine-lock wait ns, cycles) of the stamped cycles
+        since the last call, and the highest bank fill since then
+        (samples)."""
+        with self._stats_lock:
+            now = (self.busy_ns, self.lock_wait_ns, self.cycles)
+            busy, wait, cycles = (a - b for a, b in zip(now, self._taken))
+            self._taken = now
+            peak, self._peak_fill = self._peak_fill, 0
+        return busy, wait, cycles, peak
 
     def drain(self, timeout: float = 10.0) -> bool:
         """Pump until the bridge is empty; False when `timeout` seconds

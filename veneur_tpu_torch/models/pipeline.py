@@ -623,6 +623,9 @@ class AggregationEngine:
         # thread. Ingest holds the lock per item; flush holds it only
         # across the swap and the bookkeeping.
         self.lock = threading.Lock()
+        # ns the batch landings waited to take the lock, ever (the
+        # native pump reads it around each cycle)
+        self.lock_wait_ns = 0
         self._heng = sketches.histogram_engine(cfg)
         self._seng = sketches.set_engine(cfg)
         self._setup_device(device)
@@ -928,7 +931,9 @@ class AggregationEngine:
     # arrays they pass: on the CPU the engine's tensors alias them.
 
     def _ingest_batch(self, slots, count, mark, apply):
+        t0 = time.monotonic_ns()
         with self.lock:
+            self.lock_wait_ns += time.monotonic_ns() - t0
             n = int(count if count is not None else len(slots))
             if mark is not None:
                 mark(slots[:n])

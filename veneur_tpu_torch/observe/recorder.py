@@ -21,6 +21,19 @@ Recorder state is strictly process-local: no journal interaction, no
 persistence — a SimulatedKill/SIGKILL loses the ring and nothing else
 (the chaos suite pins that a kill can't corrupt what remains).
 
+Threads that are not flush ticks stamp into `SpanRing`s owned by the
+recorder: the native pump's cycles that moved samples, and every
+collection of the interpreter's collector (`collector_start` installs a
+`gc.callbacks` hook). A ring is a fixed block of int64 columns, start
+and end `monotonic_ns` plus a few integer fields, that overwrites its
+oldest entry and counts what it overwrote; it allocates nothing per
+span. Collections of generation 1 and 2 that ran while a flush tick was
+in flight are also grafted into that tick's tree as `gc` phases when the
+tick ends (the callback runs on whichever thread allocated, so the tick
+is found through the recorder, never the contextvar). `monotonic_ns`
+and `perf_counter` read one clock on Linux (CLOCK_MONOTONIC), so these
+spans line up with a device trace mapped onto `perf_counter`.
+
 Cross-thread attribution: the flusher thread owns the tick and parks
 it in a contextvar (`set_current_tick`) so code it calls synchronously
 — the forward ladder, egress retries, journal ops — can attribute
@@ -34,10 +47,21 @@ record nothing — which is the correct attribution.
 from __future__ import annotations
 
 import contextvars
+import gc
 import threading
 import time
 
+import numpy as np
+
 from . import registry as _registry
+
+# the tick-tree name of a collection (registry.phase_timer_samples does
+# not re-ingest it: a collection is not a flush phase)
+GC_PHASE = _registry.GC_PHASE
+# the collector's ring: every collection since the hook went in, with its
+# generation and the thread it ran on
+GC_FIELDS = ("generation", "thread")
+GC_SPANS = 1 << 14
 
 
 class _Scope:
@@ -121,7 +145,7 @@ class TickRecord:
 
     __slots__ = ("tick_id", "ts", "wall_start_ns", "mono_start", "mono_end",
                  "n", "dropped", "_slots", "_lock",
-                 "trace_id", "span_id", "close_ns")
+                 "trace_id", "span_id", "close_ns", "cpu_start", "cpu_ns")
 
     def __init__(self, max_phases: int):
         self._slots = [_Phase() for _ in range(max_phases)]
@@ -136,6 +160,11 @@ class TickRecord:
         self.trace_id = 0
         self.span_id = 0
         self.close_ns = 0
+        # CPU time of the thread that began and ended the tick (the
+        # flusher): its wall less the waits for the interpreter lock,
+        # the device and the engine lock
+        self.cpu_start = 0
+        self.cpu_ns = 0
 
     def _reset(self, tick_id: int, ts: int):
         from ..trace import _span_id   # shared int63 id space
@@ -149,6 +178,8 @@ class TickRecord:
         self.trace_id = _span_id()
         self.span_id = _span_id()
         self.close_ns = self.wall_start_ns
+        self.cpu_start = time.thread_time_ns()
+        self.cpu_ns = 0
 
     # ---- hot path ----
 
@@ -225,13 +256,6 @@ class TickRecord:
         return [(s.name, s.t0, s.t1, s.parent)
                 for s in self._slots[:self.n]]
 
-    def attributed_ns(self) -> int:
-        """Nanoseconds accounted to completed TOP-LEVEL phases —
-        the numerator of the >=95% coverage acceptance gate (children
-        nest inside their parents, so only roots sum)."""
-        return sum(s.t1 - s.t0 for s in self._slots[:self.n]
-                   if s.parent == -1 and s.t1 > s.t0)
-
     def to_dict(self) -> dict:
         """JSON-ready timeline: offsets are ns from tick start so a
         reader can lay phases on one axis without epoch math."""
@@ -248,8 +272,111 @@ class TickRecord:
         dur = (self.mono_end - base) if self.mono_end else None
         return {"tick_id": self.tick_id, "timestamp": self.ts,
                 "wall_start_ns": self.wall_start_ns,
-                "duration_ns": dur, "phases": phases,
+                "mono_start_ns": base,
+                "duration_ns": dur,
+                "cpu_ns": self.cpu_ns if self.mono_end else None,
+                "phases": phases,
                 "dropped_phases": self.dropped}
+
+
+class SpanRing:
+    """A fixed ring of spans for a thread that is not a flush tick:
+    start and end `monotonic_ns` and one int64 per name in `fields`, in
+    arrays allocated once. `record` writes a row in place; once the ring
+    is full it overwrites the oldest row, and `overwritten` counts them.
+
+    One writer at a time (its caller serializes it: the pump's cycle
+    lock, the collector's own exclusion); readers take no lock. The
+    writer raises `_pending` across a row's stores and bumps `count`
+    after them, so a reader drops any row a write may have torn."""
+
+    def __init__(self, capacity: int, fields: tuple = ()):
+        self.capacity = max(1, int(capacity))
+        self.fields = tuple(fields)
+        self._t = np.zeros((self.capacity, 2), np.int64)
+        self._f = np.zeros((self.capacity, max(1, len(self.fields))),
+                           np.int64)
+        self.count = 0          # spans recorded, ever
+        self._pending = False
+
+    @property
+    def overwritten(self) -> int:
+        return max(0, self.count - self.capacity)
+
+    def record(self, t0_ns: int, t1_ns: int, *values) -> None:
+        i = self.count % self.capacity
+        self._pending = True
+        t, f = self._t, self._f
+        t[i, 0] = t0_ns
+        t[i, 1] = t1_ns
+        for j, v in enumerate(values):
+            f[i, j] = v
+        self.count += 1
+        self._pending = False
+
+    def entries(self, last: int | None = None) -> tuple:
+        """Copies of the rows kept, oldest first, or of the newest
+        `last` of them: ([n, 2] start and end ns, [n, len(fields)]
+        fields)."""
+        cap = self.capacity
+        c0 = self.count
+        lo = max(0, c0 - (cap if last is None else min(cap, last)))
+        idx = np.arange(lo, c0) % cap
+        t, f = self._t[idx], self._f[idx, :len(self.fields)]
+        torn = self._pending
+        c1 = self.count
+        drop = max(0, c1 - cap + (torn or c1 != c0) - lo)
+        return t[drop:], f[drop:]
+
+    def window(self, t0_ns: int, t1_ns: int):
+        """The rows that overlap [t0_ns, t1_ns], oldest first, as
+        `entries` gives them; None where the ring no longer covers
+        t0_ns (it has overwritten rows and its oldest kept row starts
+        after t0_ns), since a row in the window may be gone."""
+        t, f = self.entries()
+        if self.overwritten and (not len(t) or t[0, 0] > t0_ns):
+            return None
+        keep = (t[:, 1] >= t0_ns) & (t[:, 0] <= t1_ns)
+        return t[keep], f[keep]
+
+    def summary(self, last: int = 8) -> dict:
+        """JSON-ready counts and the newest `last` rows."""
+        t, f = self.entries()
+        rows = []
+        for k in range(max(0, len(t) - last), len(t)):
+            row = {"start_ns": int(t[k, 0]), "end_ns": int(t[k, 1])}
+            row.update(zip(self.fields, map(int, f[k])))
+            rows.append(row)
+        return {"capacity": self.capacity, "recorded": self.count,
+                "overwritten": self.overwritten,
+                "fields": list(self.fields), "last": rows}
+
+
+class _CollectorHook:
+    """The `gc.callbacks` entry: stamps each collection into the ring
+    and keeps the totals behind veneur.gc.number and
+    veneur.gc.pause_total_ns. Collections never overlap, so the ring
+    has one writer at a time."""
+
+    __slots__ = ("ring", "t0", "collections", "pause_ns")
+
+    def __init__(self, ring: SpanRing):
+        self.ring = ring
+        self.t0 = 0
+        self.collections = 0
+        self.pause_ns = 0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self.t0 = time.monotonic_ns()
+            return
+        t0, self.t0 = self.t0, 0
+        if not t0:
+            return
+        t1 = time.monotonic_ns()
+        self.ring.record(t0, t1, info["generation"], threading.get_ident())
+        self.collections += 1
+        self.pause_ns += t1 - t0
 
 
 class FlightRecorder:
@@ -267,6 +394,9 @@ class FlightRecorder:
         self._next = 0          # flusher-thread-only
         self._tick_count = 0
         self._lock = threading.Lock()   # snapshot vs begin_tick
+        # the span rings of threads that are not flush ticks, by name
+        self._spans: dict[str, SpanRing] = {}
+        self._collector: _CollectorHook | None = None
 
     def begin_tick(self, ts: int) -> TickRecord:
         with self._lock:
@@ -278,6 +408,79 @@ class FlightRecorder:
 
     def end_tick(self, tick: TickRecord):
         tick.mono_end = time.monotonic_ns()
+        tick.cpu_ns = time.thread_time_ns() - tick.cpu_start
+        ring = self._spans.get(GC_PHASE)
+        if ring is not None:
+            self._graft_collections(tick, ring)
+
+    def _graft_collections(self, tick: TickRecord, ring: SpanRing):
+        """Add a `gc` phase for each collection of generation 1 or 2
+        that ran while `tick` was in flight, under the innermost phase
+        it started in (meta: generation, thread). Young collections run
+        hundreds of times a flush for a fraction of a millisecond each:
+        the ring keeps them, the tree does not, and the tree's
+        collections take at most a quarter of its phase slots."""
+        n = 256     # the newest rows, widened until they reach back
+        while True:
+            t, f = ring.entries(last=n)
+            if len(t) < n or t[0, 1] < tick.mono_start \
+                    or n >= ring.capacity:
+                break
+            n *= 4
+        sel = np.flatnonzero((t[:, 1] >= tick.mono_start)
+                             & (t[:, 0] <= tick.mono_end) & (f[:, 0] >= 1))
+        if not len(sel):
+            return
+        phases = tick.phases()
+        names = {th.ident: th.name for th in threading.enumerate()}
+        for k in sel[:self.max_phases // 4]:
+            s0, s1 = int(t[k, 0]), int(t[k, 1])
+            parent, start = -1, -1
+            for i, (_n, p0, p1, _p) in enumerate(phases):
+                if start <= p0 <= s0 and (p1 == 0 or s0 < p1):
+                    parent, start = i, p0
+            ident = int(f[k, 1])
+            tick.add(GC_PHASE, s0, s1, parent=parent,
+                     generation=int(f[k, 0]),
+                     thread=names.get(ident, str(ident)))
+
+    def span_ring(self, name: str, fields: tuple,
+                  capacity: int) -> SpanRing:
+        """The ring named `name`, made on first use; /debug/flush
+        summarizes every ring."""
+        ring = self._spans.get(name)
+        if ring is None:
+            ring = self._spans[name] = SpanRing(capacity, fields)
+        return ring
+
+    def spans(self, name: str) -> SpanRing | None:
+        """The ring named `name`, or None where none was made."""
+        return self._spans.get(name)
+
+    def collector_start(self):
+        """Install the collector hook (once): each collection lands in
+        the `gc` ring from here on."""
+        if self._collector is None:
+            self._collector = _CollectorHook(
+                self.span_ring(GC_PHASE, GC_FIELDS, GC_SPANS))
+        if self._collector not in gc.callbacks:
+            gc.callbacks.append(self._collector)
+
+    def collector_stop(self):
+        """Remove the hook; the ring and the totals stay readable."""
+        hook = self._collector
+        if hook is not None and hook in gc.callbacks:
+            gc.callbacks.remove(hook)
+
+    def collector_installed(self) -> bool:
+        return self._collector is not None \
+            and self._collector in gc.callbacks
+
+    def collector_totals(self) -> tuple | None:
+        """(collections, pause ns) since the hook went in; None without
+        one."""
+        hook = self._collector
+        return None if hook is None else (hook.collections, hook.pause_ns)
 
     def open_tick(self, ts: int) -> TickRecord:
         """A PRIVATE TickRecord outside the ring, for CONCURRENT
@@ -370,7 +573,14 @@ class FlightRecorder:
         return sent
 
     def debug_state(self, limit: int | None = None) -> dict:
+        totals = self.collector_totals()
         return {"tick_count": self._tick_count,
                 "capacity": self.capacity,
                 "max_phases_per_tick": self.max_phases,
-                "ticks": self.snapshot(limit)}
+                "ticks": self.snapshot(limit),
+                "spans": {name: ring.summary()
+                          for name, ring in self._spans.items()},
+                "collector": {
+                    "installed": self.collector_installed(),
+                    "collections": totals[0] if totals else 0,
+                    "pause_total_ns": totals[1] if totals else 0}}

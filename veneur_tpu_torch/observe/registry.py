@@ -58,6 +58,10 @@ _RESILIENCE_PREFIX = "veneur.resilience."
 # own t-digest engine serves percentiles of its own flush phases.
 PHASE_TIMER_PREFIX = "veneur.flush.phase."
 
+# The flight recorder's name for a collection grafted into a tick's tree;
+# a collection is not a flush phase, so the dogfood loop skips it.
+GC_PHASE = "gc"
+
 
 def metric_name(name: str, counter: bool) -> str:
     """Registry key name -> wire metric name (the one mapping)."""
@@ -235,8 +239,8 @@ def phase_timer_samples(tick) -> list:
 
     out = []
     for name, t0, t1, parent in tick.phases():
-        if parent != -1 or t1 <= t0:
-            continue   # only completed top-level phases
+        if parent != -1 or t1 <= t0 or name == GC_PHASE:
+            continue   # only completed top-level flush phases
         mname = PHASE_TIMER_PREFIX + name
         key = MetricKey(mname, "timer", "")
         out.append(UDPMetric(

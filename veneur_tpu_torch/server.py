@@ -473,6 +473,11 @@ class Server:
             self.flight = observe.FlightRecorder(
                 capacity=cfg.flight_recorder_ticks,
                 max_phases=cfg.flight_recorder_max_phases)
+            if self.native_pump is not None:
+                # the pump's cycles, and the counters drained each flush
+                from .ingest.native import PUMP_FIELDS, PUMP_SPANS
+                self.native_pump.spans = self.flight.span_ring(
+                    "pump", PUMP_FIELDS, PUMP_SPANS)
         # the time-travel query tier: armed with the engine journal
         # (recovery already ran above), built here because its query
         # ticks adopt into the flight ring just created
@@ -605,7 +610,9 @@ class Server:
 
         self.native_pump = NativePump(
             self.native_bridge, eng, views, slow_path,
-            batch=self.cfg.native_pump_batch, ssf_slow_path=ssf_slow_path)
+            batch=self.cfg.native_pump_batch, ssf_slow_path=ssf_slow_path,
+            ring_capacity=self.cfg.native_ring_capacity,
+            writers=self.cfg.num_readers)
 
     def _sinks_from_config(self) -> list[MetricSink]:
         out: list[MetricSink] = []
@@ -800,6 +807,10 @@ class Server:
             self._start_http_api(self.cfg.http_address)
         if self.native_pump is not None:
             self.native_pump.start()
+        if self.flight is not None:
+            # each collection into the recorder's gc ring (and the tree
+            # of the tick it falls in) until stop()
+            self.flight.collector_start()
         self._last_flush_ok = time.monotonic()
         self._spawn(self._flush_loop, "flusher")
         # the watchdog always runs: it counts overdue ticks
@@ -828,6 +839,8 @@ class Server:
         path is testable without real waiting."""
         deadline = time.monotonic() + timeout
         self._stop.set()
+        if self.flight is not None:
+            self.flight.collector_stop()
         if self.http_api is not None:
             self.http_api.stop()
         if self._grpc_servers:
@@ -2551,6 +2564,16 @@ class Server:
             tel.mark(S, "observe.phases_dropped", 0)
         if self.native_bridge is not None:
             self._fold_bridge_stats(eng_stats)
+        if self.native_pump is not None \
+                and self.native_pump.spans is not None:
+            self._fold_pump_stats()
+        if self.flight is not None:
+            totals = self.flight.collector_totals()
+            if totals is not None:
+                # upstream's runtime gauges (flusher.go), since the hook
+                # went in at start()
+                tel.set_gauge(S, "gc.number", totals[0])
+                tel.set_gauge(S, "gc.pause_total_ns", totals[1])
         if self.admission is not None:
             # overload counters report every interval, zeros included
             # (a zero IS the steady-state signal), plus the live
@@ -2624,6 +2647,20 @@ class Server:
                 pass
             return []
         return out
+
+    def _fold_pump_stats(self):
+        """The pump's stamped cycles since the last flush: busy and
+        engine-lock wait ns and cycles as counters, and the fullest
+        bank's highest fill as a gauge, in samples and as a share of
+        what its rings hold."""
+        tel, S = self.telemetry, observe.SERVER_SCOPE
+        busy, wait, cycles, peak = self.native_pump.take_stats()
+        tel.mark(S, "ingest.pump_busy_ns", busy)
+        tel.mark(S, "ingest.pump_lock_wait_ns", wait)
+        tel.mark(S, "ingest.pump_cycles", cycles)
+        tel.set_gauge(S, "ingest.ring_fill_peak", peak)
+        tel.set_gauge(S, "ingest.ring_fill_peak_ratio",
+                      peak / self.native_pump.ring_samples)
 
     def _fold_bridge_stats(self, eng_stats):
         """UDP and native SSF are counted in the bridge under native
