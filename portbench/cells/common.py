@@ -224,8 +224,39 @@ class Recorders:
                 self.comp.stop()
 
 
+def thread_cpu_s(tid: int):
+    """CPU seconds, user and system, of thread `tid` of this process
+    (`/proc/self/task/<tid>/stat`, in clock ticks), or None where the
+    thread cannot be read."""
+    try:
+        with open(f"/proc/self/task/{tid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def cpu_clocks(threads: dict) -> dict:
+    """CPU seconds read together: the whole process's (every thread, user
+    and system; child processes are not in it), the calling thread's,
+    and each of `threads`' (name -> native thread id)."""
+    out = {"process": time.clock_gettime(time.CLOCK_PROCESS_CPUTIME_ID),
+           "main": time.thread_time()}
+    for name, tid in threads.items():
+        out[name] = thread_cpu_s(tid)
+    return out
+
+
+def timed_flush(srv) -> tuple:
+    """`srv.flush_once()` and the calling thread's CPU seconds in it."""
+    c0 = time.thread_time()
+    fs = srv.flush_once()
+    return fs, time.thread_time() - c0
+
+
 def window(srv, conf: dict, args, codes, qs, idle_name: str, close,
-           recorders: Recorders, t_open: float, probe=None) -> dict:
+           recorders: Recorders, t_open: float, probe=None,
+           threads: dict | None = None) -> dict:
     """The measured window: whole intervals of `--seconds`, from the
     flush that opens it at `t_open` to the call of the flush that closes
     the last interval. It calls `Server.flush_once` every interval, each
@@ -235,30 +266,41 @@ def window(srv, conf: dict, args, codes, qs, idle_name: str, close,
     window. Then `close()`, which stops the load and returns what the
     generators report, and only then are the recorders stopped and read,
     so that reading the trace holds up no traffic. `probe()`, where
-    given, is read after each flush."""
+    given, is read after each flush.
+
+    The CPU clocks (`cpu_clocks`, with `threads`) are read with `t_w0`
+    and `t_w1`, and the calling thread's CPU inside each `flush_once`
+    call: the opening one as `open_flush_cpu_s`, the others as each
+    flush's `cpu_s`."""
     interval = float(conf["interval_s"])
+    threads = threads or {}
     out = {"flushes": [], "rows": []}
     try:
         wait_until(t_open)
         gc0 = [g["collections"] for g in gc.get_stats()]
         t_w0, p_w0 = time.monotonic(), time.perf_counter()
-        out["rows"].append(read_frameset(srv.flush_once(), codes, qs,
-                                         SELF)[0])
+        c_w0 = cpu_clocks(threads)
+        fs, out["open_flush_cpu_s"] = timed_flush(srv)
+        out["rows"].append(read_frameset(fs, codes, qs, SELF)[0])
+        del fs
         for k in range(1, max(1, int(args.seconds // interval)) + 1):
             wait_until(t_w0 + k * interval)
             t_w1, t0 = time.monotonic(), time.perf_counter()
-            fs = srv.flush_once()
+            c_w1 = cpu_clocks(threads)
+            fs, cpu_s = timed_flush(srv)
             t1 = time.perf_counter()
             blocks, extra = read_frameset(fs, codes, qs, SELF)
             del fs
             out["rows"].append(blocks)
-            f = {"t0": t0, "t1": t1, "swap_ns": extra.get(SELF[0], 0.0),
+            f = {"t0": t0, "t1": t1, "cpu_s": cpu_s,
+                 "swap_ns": extra.get(SELF[0], 0.0),
                  "merge_ns": extra.get(SELF[1], 0.0),
                  "assembly_ns": extra.get(SELF[2], 0.0)}
             if probe is not None:
                 f["probe"], f["probe_at"] = probe(), time.monotonic()
             out["flushes"].append(f)
-        out.update(t_w0=t_w0, t_w1=t_w1, p_w0=p_w0, p_w1=t0)
+        out.update(t_w0=t_w0, t_w1=t_w1, p_w0=p_w0, p_w1=t0,
+                   cpu_clocks=(c_w0, c_w1))
         out["gc_collections"] = [g["collections"] - n for g, n
                                  in zip(gc.get_stats(), gc0)]
     finally:
@@ -288,6 +330,24 @@ def flush_notes(win: dict) -> list:
                 * 1e3)]
 
 
+def cpu_split(win: dict) -> dict:
+    """The CPU seconds that the port's process spent from `t_w0` to
+    `t_w1`: the process's, less the harness's calling thread's, plus
+    that thread's inside the flush_once calls that start in the span
+    (the opening one and all but the last of `flushes`), as `window_s`;
+    beside it those parts, and `<name>_s` for each thread read."""
+    c0, c1 = win["cpu_clocks"]
+    flush = win["open_flush_cpu_s"] + sum(f["cpu_s"]
+                                          for f in win["flushes"][:-1])
+    out = {"process_s": c1["process"] - c0["process"],
+           "main_s": c1["main"] - c0["main"], "flush_s": flush}
+    out["window_s"] = out["process_s"] - out["main_s"] + flush
+    for name in c0.keys() - {"process", "main"}:
+        if c0[name] is not None and c1[name] is not None:
+            out[name + "_s"] = c1[name] - c0[name]
+    return out
+
+
 def record(kind: str, conf: dict, args, win: dict, phases: dict,
            verdict: dict, peak: int, attempted: float) -> dict:
     """The run's record, which the metric readers read."""
@@ -300,7 +360,7 @@ def record(kind: str, conf: dict, args, win: dict, phases: dict,
            "p_w1": win["p_w1"], "attempted": int(round(attempted)),
            "failed": verdict["failed"], "correct": verdict["correct"],
            "checks": verdict["checks"], "notes": verdict["notes"],
-           "memory_peak_bytes": peak}
+           "memory_peak_bytes": peak, "cpu": cpu_split(win)}
     for k in ("trace", "gc_spans"):
         if k in win:
             rec[k] = win[k]

@@ -54,6 +54,19 @@ def samples_in(flush: dict, every: int) -> int:
     return int(round(n))
 
 
+def cpu_note(cpu: dict, window_s: float) -> str:
+    """The window's CPU in cores: the pump thread, the flush calls and
+    the rest of the port's process."""
+    pump = cpu.get("pump_s")
+    rest = cpu["window_s"] - cpu["flush_s"] - (pump or 0.0)
+    return ("CPU over the window, cores: pump "
+            + ("not read" if pump is None else f"{pump / window_s:.4f}")
+            + f", flush calls {cpu['flush_s'] / window_s:.4f}, the rest "
+            f"{rest / window_s:.4f}; in all {cpu['window_s'] / window_s:.4f}"
+            f" (process {cpu['process_s'] / window_s:.4f}, the harness's "
+            f"thread {cpu['main_s'] / window_s:.4f})")
+
+
 def prepare(cell: dict, args) -> dict:
     """What set-up needs before the port: the senders' pools and shares,
     and the sender processes, started so that they build their pools
@@ -138,9 +151,12 @@ def run(cell: dict, args, device, prep=None) -> dict:
                                              codes, qs, probe)
         rows += warm_rows
         stamp("warm_flushed")
+        threads = ({} if srv.native_pump is None else
+                   {"pump": srv.native_pump._thread.native_id})
         win = common.window(srv, conf, args, codes, qs, "pump",
                             procs.stop, recorders,
-                            t_go + n_warm * interval, probe=probe)
+                            t_go + n_warm * interval, probe=probe,
+                            threads=threads)
         reports = win["reports"]
         sent = [r["lines"] for r in reports]
         settled = settle(srv, sum(sent) // L, base)
@@ -177,6 +193,7 @@ def run(cell: dict, args, device, prep=None) -> dict:
     rec["flush_samples"] = [samples_in(f, every) for f in flushes[
         len(rows) + 1:len(rows) + len(win["rows"])]]
     rec["max_lag_s"] = max(r["max_lag_s"] for r in reports)
+    rec["notes"].append(cpu_note(rec["cpu"], rec["window_s"]))
     rec["notes"].append(
         "set-up phases, s from the process's start: " + ", ".join(
             f"{k} {v:.3f}" for k, v in phases.items()))

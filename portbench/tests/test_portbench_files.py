@@ -44,13 +44,16 @@ def test_every_listed_metric_has_a_reader(name):
 def canned(kind):
     """Five flushes of 100 ms at 12, 14, .. 20 s; a 50-ms collection
     wholly inside the first, one of 60 ms that starts 20 ms before the
-    second and one of 30 ms between the third and the fourth."""
+    second and one of 30 ms between the third and the fourth; 13 CPU
+    seconds in the window, 9.9 of them the pump's and 0.5 the flushes'."""
     flushes = [{"t0": 10.0 + 2 * k, "t1": 10.1 + 2 * k, "swap_ns": 5e6,
                 "merge_ns": 9e6, "assembly_ns": 4e7} for k in range(1, 6)]
     return {"kind": kind, "setup_s": 11.5, "flushes": flushes,
             "window_s": 10.0, "flush_samples": [300000, 290000, 310000,
                                                 300000, 300000],
             "gc_spans": [(12.0, 12.05), (13.98, 14.04), (17.0, 17.03)],
+            "cpu": {"process_s": 14.0, "main_s": 1.5, "flush_s": 0.5,
+                    "window_s": 13.0, "pump_s": 9.9},
             "trace": {"busy_s": 0.5, "window_s": 10.0,
                       "compress": [(32768, 256, 256, True, 0.0006),
                                    (32768, 256, 256, False, 0.0012)]}}
@@ -66,6 +69,9 @@ WANT = {
     "gc.flush_pause_ms": (50.0 + 60.0 + 30.0) / 5,
     "kernels.compress_roofline_pct.flush": 100 * 6.01e-5 / 6e-4,
     "device.idle_pct.flush": 95.0,
+    "cpu_ns_per_sample": 13e9 / 1.5e6,
+    "ingest.pump_cpu_pct": 99.0,
+    "server.flush_cpu_pct": 5.0,
 }
 
 
